@@ -1,0 +1,247 @@
+"""Feature-shard storage: the shard parts of the JAX package's io/bins.py,
+copied so that both packages read and write the same files.
+
+Shards are .npz (zstd-wrapped by default, plain deflate zip with
+NSP_SHARD_CODEC=deflate). The HDF5 interop and training-bin helpers of the
+JAX package are not part of the port's inference slice.
+"""
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Dict, List
+
+import numpy as np
+
+
+# ---------------------------------------------------------------------------
+# pileup predict shards
+# ---------------------------------------------------------------------------
+
+
+class PileupShard:
+    """s1 candidate shard.
+
+    v2 shards store the COLUMN union (columns [M,18] int16 + per-candidate
+    center offsets cand_off [N]) instead of dense [N,33,18] windows:
+    adjacent candidates share window columns, so the dense tensor is ~3x
+    redundant — raw bytes drive the npz deflate/inflate time and the
+    host->device transfer, both of which were s1/s2 bottlenecks at contig
+    scale. `.matrix` materializes the dense view lazily for consumers that
+    need it (HDF5 interop, verify, training); the s2 predictor gathers
+    windows ON DEVICE from the columns. v1 (dense `matrix` key) shards
+    still load."""
+
+    def __init__(self, contig: str, positions=None, matrix=None,
+                 ref_seqs=None, alt_info=None, *, columns=None,
+                 cand_off=None, flank: int = 16):
+        self.contig = contig
+        self.positions = positions   # [N] int64
+        self.ref_seqs = ref_seqs     # [N] S33 bytes
+        self.alt_info = alt_info     # [N] bytes
+        self.columns = columns       # [M, 18] int16 or None (v1)
+        self.cand_off = cand_off     # [N] int64 or None (v1)
+        self.flank = flank
+        self._matrix = matrix
+        if matrix is None and columns is None:
+            raise ValueError("PileupShard needs matrix or columns")
+
+    @property
+    def matrix(self) -> np.ndarray:
+        """Dense [N, 2*flank+1, 18] windows (materialized lazily)."""
+        if self._matrix is None:
+            gather = self.cand_off[:, None] + np.arange(
+                -self.flank, self.flank + 1)[None, :]
+            self._matrix = self.columns[gather]
+        return self._matrix
+
+    @property
+    def center_counts(self) -> np.ndarray:
+        """[N, 18] center-column counts without materializing windows."""
+        if self._matrix is not None:
+            return self._matrix[:, self._matrix.shape[1] // 2, :]
+        if getattr(self, "_centers", None) is None:
+            self._centers = self.columns[self.cand_off]
+        return self._centers
+
+    def __len__(self):
+        return len(self.positions)
+
+
+_ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"
+
+
+def _zstd():
+    try:
+        import zstandard
+
+        return zstandard
+    except ImportError:  # pragma: no cover - zstandard ships in the image
+        return None
+
+
+def _savez_fast(path: str, arrays, compresslevel: int = 1) -> None:
+    """Shard writer. Default container (r5): a whole-file zstd frame
+    around a STORED .npz — zstd level 3 matches deflate-6 ratios at ~5x
+    the compression speed (and compresses MULTITHREADED), and inflates
+    ~20x faster than zlib, which was the s5 stage's actual bottleneck
+    (one 255k-group consolidated shard cost 31 s of single-threaded
+    zlib inflate per load). `open_npz` sniffs the magic, so historic
+    deflate shards keep loading and the filename stays `.npz`.
+    NSP_SHARD_CODEC=deflate restores the plain np.load-able container
+    (interop with external numpy tooling)."""
+    import io as _io
+    import zipfile
+
+    from numpy.lib import format as npformat
+
+    if not path.endswith(".npz"):
+        path += ".npz"
+    zstd = _zstd() if os.environ.get("NSP_SHARD_CODEC",
+                                     "zstd") == "zstd" else None
+    if zstd is not None:
+        raw = _io.BytesIO()
+        with zipfile.ZipFile(raw, "w", zipfile.ZIP_STORED) as zf:
+            for name, arr in arrays.items():
+                buf = _io.BytesIO()
+                npformat.write_array(buf, np.asanyarray(arr))
+                zf.writestr(f"{name}.npy", buf.getvalue())
+        comp = zstd.ZstdCompressor(level=3, threads=-1)
+        with open(path, "wb") as f:
+            f.write(comp.compress(raw.getbuffer()))
+        return
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED,
+                         compresslevel=compresslevel) as zf:
+        for name, arr in arrays.items():
+            buf = _io.BytesIO()
+            npformat.write_array(buf, np.asanyarray(arr))
+            zf.writestr(f"{name}.npy", buf.getvalue())
+
+
+def open_npz(path: str):
+    """np.load for shard files, transparent to the container codec:
+    plain zip npz (historic shards, NSP_SHARD_CODEC=deflate) or the r5
+    zstd-wrapped npz. Every shard consumer must use this instead of
+    np.load."""
+    with open(path, "rb") as f:
+        head = f.read(4)
+    if head != _ZSTD_MAGIC:
+        return np.load(path)
+    import io as _io
+
+    zstd = _zstd()
+    if zstd is None:  # pragma: no cover - zstandard ships in the image
+        raise RuntimeError(f"{path} is zstd-compressed but the zstandard "
+                           "module is unavailable")
+    with open(path, "rb") as f:
+        raw = zstd.ZstdDecompressor().stream_reader(f).read()
+    return np.load(_io.BytesIO(raw))
+
+
+def save_pileup_shard(path: str, shard: PileupShard) -> None:
+    # channel counts fit int16 (|value| <= 4*max_depth(144) = 576 after the
+    # ref-negation trick): half the bytes of int32 to compress/decompress
+    arrays = dict(
+        contig=np.array(shard.contig),
+        positions=shard.positions,
+        ref_seqs=np.asarray(shard.ref_seqs, dtype="S"),
+        alt_info=np.asarray(shard.alt_info, dtype="S"),
+    )
+    if shard.columns is not None:
+        arrays["columns"] = shard.columns.astype(np.int16, copy=False)
+        arrays["cand_off"] = shard.cand_off.astype(np.int64, copy=False)
+        arrays["flank"] = np.int64(shard.flank)
+    else:
+        arrays["matrix"] = shard.matrix.astype(np.int16, copy=False)
+    _savez_fast(path, arrays)
+
+
+def load_pileup_shard(path: str) -> PileupShard:
+    z = open_npz(path)
+    if "columns" in z.files:
+        return PileupShard(
+            contig=str(z["contig"]),
+            positions=z["positions"],
+            ref_seqs=z["ref_seqs"],
+            alt_info=z["alt_info"],
+            columns=z["columns"],
+            cand_off=z["cand_off"],
+            flank=int(z["flank"]),
+        )
+    return PileupShard(
+        contig=str(z["contig"]),
+        positions=z["positions"],
+        matrix=z["matrix"],
+        ref_seqs=z["ref_seqs"],
+        alt_info=z["alt_info"],
+    )
+
+
+# ---------------------------------------------------------------------------
+# haplotype shards
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class HaplotypeShard:
+    contig: str
+    candidate_positions: np.ndarray    # [N] int64
+    group_positions: np.ndarray        # [N, 11] int64 (het group positions)
+    pileup: Dict[str, np.ndarray]      # sequences/hap/baseq/mapq [N, Dp, 33] int32
+    haplotype: Dict[str, np.ndarray]   # sequences/hap/baseq/mapq [N, Dh, 11] int32
+
+    def __len__(self):
+        return len(self.candidate_positions)
+
+
+_KEYS = ("sequences", "hap", "baseq", "mapq")
+
+# Depth buckets shared by s4 packing, s5 inference pooling, and the
+# training iterator — train and serve MUST pad to the same depths.
+DEPTH_BUCKETS = (16, 32, 48, 64, 96, 128, 192, 256, 384, 512)
+
+
+def depth_bucket(d: int) -> int:
+    for b in DEPTH_BUCKETS:
+        if d <= b:
+            return b
+    return ((d + 127) // 128) * 128
+
+
+# value ranges (pad -2): sequences -2..4, baseq -2..93, hap -2..3 -> int8;
+# mapq -2..254 (BAM uint8) -> int16. Compact dtypes cut shard decompress
+# time ~3x and device transfer 4x vs int32, and int16 mapq ships losslessly
+# (the old int32->int8 transfer clip saturated mapq>127).
+_KEY_DTYPE = {"sequences": np.int8, "baseq": np.int8, "hap": np.int8,
+              "mapq": np.int16}
+
+
+def save_haplotype_shard(path: str, shard: HaplotypeShard) -> None:
+    arrays = {
+        "contig": np.array(shard.contig),
+        "candidate_positions": shard.candidate_positions,
+        "group_positions": shard.group_positions,
+    }
+    for k in _KEYS:
+        arrays[f"pileup_{k}"] = shard.pileup[k].astype(_KEY_DTYPE[k],
+                                                       copy=False)
+        arrays[f"haplotype_{k}"] = shard.haplotype[k].astype(_KEY_DTYPE[k],
+                                                             copy=False)
+    _savez_fast(path, arrays)
+
+
+def load_haplotype_shard(path: str) -> HaplotypeShard:
+    z = open_npz(path)
+    return HaplotypeShard(
+        contig=str(z["contig"]),
+        candidate_positions=z["candidate_positions"],
+        group_positions=z["group_positions"],
+        pileup={k: z[f"pileup_{k}"] for k in _KEYS},
+        haplotype={k: z[f"haplotype_{k}"] for k in _KEYS},
+    )
+
+
+def list_shards(directory: str, suffix: str = ".npz") -> List[str]:
+    return sorted(
+        os.path.join(directory, f) for f in os.listdir(directory)
+        if f.endswith(suffix))

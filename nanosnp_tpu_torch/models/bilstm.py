@@ -1,0 +1,151 @@
+"""Bidirectional LSTM stack and dense layers over the JAX package's
+parameter layout.
+
+Layout (kept from nanosnp_tpu/models/bilstm.py so weights carry across as
+a copy): per layer `w_ih` [2, D, 4H] and `w_hh` [2, H, 4H] (x @ w, the
+direction stacked first), one folded bias `b` [2, 4H] = b_ih + b_hh, gate
+order i, f, g, o. Dense layers keep `w` [in, out] and `b` [out].
+
+Two encoders:
+  bilstm_encoder        the f32 step loop, equal to the JAX lax.scan path
+                        with compute_dtype=float32 (the CPU reference);
+  bilstm_encoder_fused  the kernel path, mirroring the JAX package's
+                        bilstm_encoder_pallas: one fused in-projection +
+                        recurrence kernel per layer, bf16 activations
+                        between layers, and under center_only a last layer
+                        that emits only the window-center state.
+"""
+from __future__ import annotations
+
+from typing import Iterable, List, Mapping
+
+import torch
+from torch import nn
+
+from ..ops.bilstm import bilstm_center, bilstm_stream
+
+
+def _param(a) -> nn.Parameter:
+    return nn.Parameter(torch.as_tensor(a, dtype=torch.float32),
+                        requires_grad=False)
+
+
+class BiLSTMLayer(nn.Module):
+    def __init__(self, p: Mapping):
+        super().__init__()
+        self.w_ih = _param(p["w_ih"])      # [2, D, 4H]
+        self.w_hh = _param(p["w_hh"])      # [2, H, 4H]
+        self.b = _param(p["b"])            # [2, 4H]
+
+    @property
+    def hidden(self) -> int:
+        return self.w_hh.shape[1]
+
+
+class BiLSTM(nn.Module):
+    """A stack of BiLSTM layers (dropout is a training concern: not here)."""
+
+    def __init__(self, layers: Iterable[Mapping]):
+        super().__init__()
+        self.layers = nn.ModuleList(BiLSTMLayer(p) for p in layers)
+
+
+class Dense(nn.Module):
+    """y = x @ w + b with the JAX package's `linear()` cast sites."""
+
+    def __init__(self, p: Mapping):
+        super().__init__()
+        self.w = _param(p["w"])            # [in, out]
+        self.b = _param(p["b"])            # [out]
+
+    def forward(self, x: torch.Tensor,
+                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        if compute_dtype == torch.bfloat16:
+            # bf16 operands, f32 accumulation: a bf16 torch matmul would
+            # round its output to bf16, which the JAX path does not
+            return (x.bfloat16().float() @ self.w.bfloat16().float()
+                    + self.b)
+        return x.float() @ self.w + self.b
+
+
+def bilstm_encoder(layers: Iterable[BiLSTMLayer],
+                   x: torch.Tensor) -> torch.Tensor:
+    """f32 reference loop. x [N, L, D] -> [N, L, 2H] f32."""
+    out = x.float()
+    for layer in layers:
+        n, seq_len, _ = out.shape
+        hidden = layer.hidden
+        hs: List[torch.Tensor] = []
+        for d in (0, 1):
+            xp = out @ layer.w_ih[d] + layer.b[d]          # [N, L, 4H]
+            h = out.new_zeros(n, hidden)
+            c = out.new_zeros(n, hidden)
+            steps = [None] * seq_len
+            for s in range(seq_len):
+                t = s if d == 0 else seq_len - 1 - s
+                gates = xp[:, t] + h @ layer.w_hh[d]
+                i, f, g, o = gates.split(hidden, dim=1)
+                c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+                h = torch.sigmoid(o) * torch.tanh(c)
+                steps[t] = h
+            hs.append(torch.stack(steps, dim=1))           # [N, L, H]
+        out = torch.cat(hs, dim=-1)
+    return out
+
+
+def bilstm_encoder_fused(layers: Iterable[BiLSTMLayer], x: torch.Tensor,
+                         center_only: bool = False) -> torch.Tensor:
+    """Kernel path. x [N, L, D] -> [N, L, 2H] f32, or [N, 2H] f32 (the
+    state at t = L//2) when center_only."""
+    layers = list(layers)
+    seq_len = x.shape[1]
+    h = x.bfloat16().contiguous()
+    hs = None
+    for idx, layer in enumerate(layers):
+        last = idx == len(layers) - 1
+        w_ih = layer.w_ih.bfloat16().contiguous()
+        w_hh = layer.w_hh.bfloat16().contiguous()
+        b = layer.b.float().contiguous()
+        if last and center_only and seq_len % 2 == 1:
+            return bilstm_center(h, w_ih, w_hh, b)
+        hs = bilstm_stream(h, w_ih, w_hh, b,
+                           torch.float32 if last else torch.bfloat16)
+        h = hs.bfloat16()
+    if center_only:
+        return hs[:, seq_len // 2]
+    return hs
+
+
+def encoder_center(layers: Iterable[BiLSTMLayer], x: torch.Tensor,
+                   compute_dtype: torch.dtype) -> torch.Tensor:
+    """Window-center state [N, 2H] f32. On the card the encoder always runs
+    the bf16 kernels, as the JAX package always runs its Pallas kernels on
+    the TPU. On the CPU, compute_dtype bf16 runs the kernels' plain
+    versions and f32 runs the f32 reference loop."""
+    if x.is_cuda or compute_dtype == torch.bfloat16:
+        return bilstm_encoder_fused(layers, x, center_only=True)
+    return bilstm_encoder(layers, x)[:, x.shape[1] // 2]
+
+
+def init_bilstm_params(gen: torch.Generator, input_size: int,
+                       hidden_size: int, n_layers: int) -> List[dict]:
+    """Uniform(-1/sqrt(H), 1/sqrt(H)) weights in the parameter layout above
+    (torch.nn.LSTM's default init; the folded bias spans twice that)."""
+    k = 1.0 / hidden_size ** 0.5
+
+    def u(shape, scale):
+        return (torch.rand(shape, generator=gen) * 2 - 1) * scale
+
+    layers = []
+    for layer in range(n_layers):
+        d_in = input_size if layer == 0 else 2 * hidden_size
+        layers.append({"w_ih": u((2, d_in, 4 * hidden_size), k),
+                       "w_hh": u((2, hidden_size, 4 * hidden_size), k),
+                       "b": u((2, 4 * hidden_size), 2 * k)})
+    return layers
+
+
+def init_linear_params(gen: torch.Generator, d_in: int, d_out: int) -> dict:
+    k = 1.0 / d_in ** 0.5
+    return {"w": (torch.rand(d_in, d_out, generator=gen) * 2 - 1) * k,
+            "b": (torch.rand(d_out, generator=gen) * 2 - 1) * k}

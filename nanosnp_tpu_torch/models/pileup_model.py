@@ -1,0 +1,72 @@
+"""Pileup-stage caller: 2-layer BiLSTM(h=64) -> proj(128) -> dense(256) ->
+4 heads (gt 21, zy 3, indel1 33, indel2 33) over input [N, 33, 18].
+
+Counterpart of nanosnp_tpu/models/pileup_model.py. As there, the window
+center is sliced before the head: proj and dense are pointwise over time,
+so applying them once at the center is the same math with 33x fewer head
+FLOPs. The head is plain products outside any kernel.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import torch
+from torch import nn
+
+from ..config import PileupModelConfig
+from ..device import set_matmul_precision
+from .bilstm import (BiLSTM, Dense, encoder_center, init_bilstm_params,
+                     init_linear_params)
+
+HEADS = ("gt", "zy", "id1", "id2")
+
+
+class PileupModel(nn.Module):
+    def __init__(self, cfg: PileupModelConfig, params: Mapping):
+        super().__init__()
+        set_matmul_precision()
+        self.cfg = cfg
+        self.encoder = BiLSTM(params["encoder"])
+        self.proj = Dense(params["proj"])
+        self.dense = Dense(params["dense"])
+        self.heads = nn.ModuleDict({k: Dense(params[k]) for k in HEADS})
+
+    def forward(self, x: torch.Tensor,
+                compute_dtype: torch.dtype = torch.float32,
+                all_heads: bool = True):
+        """x [N, 33, 18] -> (gt, zy, id1, id2) logits (id* None unless
+        all_heads)."""
+        ctr = encoder_center(self.encoder.layers, x, compute_dtype)
+        feat = self.proj(ctr, compute_dtype)                       # [N, 128]
+        feat = torch.tanh(self.dense(feat, compute_dtype))         # [N, 256]
+        names = HEADS if all_heads else HEADS[:2]
+        outs = [self.heads[k](feat, compute_dtype) for k in names]
+        return tuple(outs) + (None,) * (4 - len(outs))
+
+
+def init_pileup_params(gen: torch.Generator, cfg: PileupModelConfig) -> dict:
+    """Seeded weights at the configuration's full width (the layout of
+    the JAX package's init_pileup_params; other random numbers)."""
+    return {
+        "encoder": init_bilstm_params(gen, cfg.feature_dim, cfg.hidden_size,
+                                      cfg.n_layers),
+        "proj": init_linear_params(gen, 2 * cfg.hidden_size, cfg.output_size),
+        "dense": init_linear_params(gen, cfg.output_size, cfg.inner_size),
+        "gt": init_linear_params(gen, cfg.inner_size, cfg.gt_num_class),
+        "zy": init_linear_params(gen, cfg.inner_size, cfg.zy_num_class),
+        "id1": init_linear_params(gen, cfg.inner_size, cfg.indel1_num_class),
+        "id2": init_linear_params(gen, cfg.inner_size, cfg.indel2_num_class),
+    }
+
+
+def pileup_forward(model: PileupModel, x: torch.Tensor, *,
+                   compute_dtype: torch.dtype = torch.float32,
+                   all_heads: bool = True):
+    return model(x, compute_dtype=compute_dtype, all_heads=all_heads)
+
+
+def pileup_predict(model: PileupModel, x: torch.Tensor,
+                   compute_dtype: torch.dtype = torch.float32):
+    """Softmaxed gt/zy probabilities (reference model.predict)."""
+    gt, zy, _, _ = model(x, compute_dtype=compute_dtype, all_heads=False)
+    return torch.softmax(gt, dim=-1), torch.softmax(zy, dim=-1)

@@ -1,0 +1,107 @@
+"""Build and load the port's CUDA kernels.
+
+Each source in `csrc/` compiles with `nvcc` into its own shared library
+with a plain C interface, loaded with ctypes. Nothing is built when a
+module is imported: the first call of a kernel wrapper builds its library
+into `ops/build/` (listed in .gitignore) under a name that carries the
+hash of the source, so an edited source is rebuilt and an unchanged one is
+reused within a checkout. `build_all()` starts one `nvcc` per source, all
+at once, and waits for them together.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List, Tuple
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+
+# source stem -> C functions and their ctypes signatures
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SOURCES: Dict[str, Dict[str, List]] = {
+    "bilstm": {
+        # x, packed weights, b, out, out_f32, n, seq_len, d_in, hidden, stream
+        "nsp_bilstm_stream": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # x, packed weights, b, out, n, seq_len, d_in, hidden, stream
+        "nsp_bilstm_center": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+}
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LOCK = threading.Lock()
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH, CUDA_HOME): the CUDA kernels "
+                           "are built on a machine with the CUDA toolkit")
+    return path
+
+
+def _target(name: str) -> Tuple[Path, Path]:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    return src, BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build_all() -> Dict[str, str]:
+    """Compile every source that has no current library, one nvcc process
+    each, started together. Returns {name: ptxas report} for the sources
+    built in this call."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    jobs = []
+    for name in SOURCES:
+        src, lib = _target(name)
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, proc, tmp, lib))
+    reports = {}
+    failed = []
+    for name, proc, tmp, lib in jobs:
+        log, _ = proc.communicate()
+        reports[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, lib)   # atomic: a reader never sees a partial file
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return reports
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/{name}.cu, built first if needed."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is not None:
+            return lib
+        _, path = _target(name)
+        if not path.exists():
+            build_all()
+        lib = ctypes.CDLL(str(path))
+        for fn, argtypes in SOURCES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        _LIBS[name] = lib
+        return lib

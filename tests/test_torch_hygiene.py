@@ -1,0 +1,73 @@
+"""The port stands alone: no module of nanosnp_tpu_torch imports jax or
+the JAX package, importing it builds nothing, and an entry point asked
+for the card on a machine without one raises instead of running on the
+CPU."""
+import ast
+import importlib
+import pathlib
+
+import pytest
+import torch
+
+PKG = pathlib.Path(__file__).resolve().parent.parent / "nanosnp_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "nanosnp_tpu")
+
+
+def _modules():
+    return sorted(PKG.rglob("*.py"))
+
+
+def _imported_names(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def _forbidden(name: str) -> bool:
+    # compare whole dotted components: "nanosnp_tpu_torch" is allowed
+    return name.split(".")[0] in FORBIDDEN
+
+
+def test_forbidden_prefix_check_is_exact():
+    assert _forbidden("nanosnp_tpu") and _forbidden("nanosnp_tpu.io.bins")
+    assert _forbidden("jax.numpy")
+    assert not _forbidden("nanosnp_tpu_torch.io.bins")
+
+
+@pytest.mark.parametrize("path", _modules(), ids=lambda p: str(
+    p.relative_to(PKG)))
+def test_module_imports_no_jax_or_jax_package(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [n for n in _imported_names(tree) if _forbidden(n)]
+    assert not bad, f"{path}: imports {bad}"
+
+
+def test_importing_every_module_builds_nothing(monkeypatch):
+    from nanosnp_tpu_torch.ops import build
+
+    def no_build(*a, **k):
+        raise AssertionError("a kernel build started at import time")
+
+    monkeypatch.setattr(build, "build_all", no_build)
+    for path in _modules():
+        rel = path.relative_to(PKG.parent).with_suffix("")
+        importlib.import_module(".".join(rel.parts).replace(".__init__", ""))
+
+
+def test_cuda_entry_points_raise_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    from nanosnp_tpu_torch.config import PipelineConfig
+    from nanosnp_tpu_torch.runtime import stages
+
+    cfg = PipelineConfig()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        stages.stage_pileup_predict(cfg, None, str(tmp_path),
+                                    str(tmp_path / "out.vcf"), params={})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        stages.stage_haplotype_predict(cfg, None, str(tmp_path),
+                                       str(tmp_path / "out.csv"), params={})
+    assert not (tmp_path / "out.vcf").exists()
