@@ -9,7 +9,12 @@
            shape the main path gives it (N not a multiple of the batch
            tile), then times kernel, plain version and cuDNN nn.LSTM
            (a yardstick only: the port never calls it) at N=8192.
-  phase 2  drives the slice through its entry points at full model width:
+  phase 1b holds the training recurrence kernels (forward, backward sweep,
+           dW reduction) against their plain versions at the trainers'
+           shapes (N not a multiple of the tiles), then times them beside
+           cuDNN nn.LSTM in training mode (a yardstick only).
+  phase 2  drives the serving slice through its entry points at full
+           model width:
            s2-predict (CLI) on a 100k-candidate columnar shard with seeded
            full-width pileup weights, s5 stage_haplotype_predict on two
            depth buckets with the shipped v6b haplotype weights, s6-merge
@@ -17,6 +22,15 @@
            read after it. The outputs are checked for shape and finite
            values, and the models on the card against their plain versions
            on the CPU on a small input.
+  phase 3  trains both models through the CLI at full width: train-pileup
+           on 40k labeled windows (batch 2000) and train-haplotype on 4k
+           sites in depth buckets 64 and 96 with a truth VCF (batch 512),
+           2 epochs each with validation. Launch counts are zeroed before
+           each and read after; losses must be finite, checkpoints written,
+           and the trained pileup checkpoint must load and predict. Then
+           one full-width pileup step's gradients on the card are held
+           against the plain versions on the CPU, and steady-state steps of
+           both trainers are timed and profiled (torch.profiler).
 
 Prints a `{"kernels": [...]}` line, then as the last line
 `{"ok": true, "device": {...}}`. Exits non-zero on any failure, when no
@@ -51,6 +65,14 @@ PROB_TOL = 1e-2         # model probabilities, card vs CPU plain versions
 CONTIG_LEN = 3_000_000  # a few-Mbp contig at 30x ...
 N_CAND = 100_000        # ... gives ~100k candidates: 13 batches of 8192
 HAP_SITES = 8000        # haplotype sites in each of two depth buckets
+PILEUP_TRAIN_ROWS = 40_000   # 18 steps of 2000 a epoch after the 10% split
+HAP_TRAIN_SITES = 2000       # haplotype training sites per depth bucket
+GRAD_N = 256            # batch of the card-vs-CPU gradient check
+PROFILE_STEPS = 5       # training steps timed, and profiled, per model
+# gradients of one step, card vs CPU, over the largest entry of each leaf:
+# both sides round h_{t-1}, dgates and dW to bf16, so a reordered f32 sum
+# can flip a rounding (2^-8 relative) and carry it through the layers
+GRAD_TOL = 2e-2
 
 
 def log(*a):
@@ -88,7 +110,36 @@ REPLACES = {
                      ", nanosnp_tpu/ops/pallas_lstm.py:733 "
                      "(_enc_stream_kfused_kernel)",
     "bilstm_center": "nanosnp_tpu/ops/pallas_lstm.py:501 (_enc_center_kernel)",
+    "lstm_recurrence_train": "nanosnp_tpu/ops/pallas_lstm.py:178 "
+                             "(_train_kernel)",
+    "lstm_recurrence_bwd": "nanosnp_tpu/ops/pallas_lstm.py:235 (_bwd_kernel)",
+    "lstm_dw_reduce": "nanosnp_tpu/ops/pallas_lstm.py:291 (_bwd_kernel's dW "
+                      "accumulation) and :417 (its sum over batch tiles)",
 }
+SOURCES = {"bilstm_stream": "bilstm.cu", "bilstm_center": "bilstm.cu",
+           "lstm_recurrence_train": "lstm_train.cu",
+           "lstm_recurrence_bwd": "lstm_train.cu",
+           "lstm_dw_reduce": "lstm_train.cu"}
+
+# H100 SXM f32 peak outside the tensor cores (NVIDIA data sheet): the dW
+# product runs in f32 on the CUDA cores
+PEAK_F32_FLOPS = 67e12
+# (label, N, L, D, H): every recurrence call of a training step, at the
+# trainers' batch sizes. The kernels see only H (xp is 4H wide); D is the
+# first layer's input, for the cuDNN yardstick, which includes the
+# in-projection.
+TRAIN_SHAPES = [
+    ("pileup", 2000, 33, 18, 64),
+    ("haplotype pileup branch", 512, 33, 105, 256),
+    ("haplotype haplotype branch", 512, 11, 105, 256),
+]
+# f32 outputs, bf16 cast sites on both sides: the gap is summation order,
+# which can flip the bf16 rounding of an h_{t-1} or a dgate, carried
+# through the later steps; relative to the largest value
+TRAIN_TOL = 2e-3
+# dW: both sides round the f32 sum to bf16 once, so one bf16 ulp (2^-8)
+# of the largest entry, plus margin for a flipped rounding
+DW_TOL = 1e-2
 
 
 def phase_kernels(dev):
@@ -147,6 +198,113 @@ def phase_kernels(dev):
         log(f"[time]  {name:14s} {label:16s} N={N_TIME}: kernel {ms:.3f} ms"
             f", plain {plain_ms:.3f} ms, cuDNN {library_ms:.3f} ms, bound "
             f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']})")
+    return rows
+
+
+def _errs(got, want):
+    """(max |got - want|, that over max(1, max |want|))."""
+    want = want.float()
+    err = (got.float() - want).abs().max().item()
+    return err, err / max(1.0, want.abs().max().item())
+
+
+def phase_train_kernels(dev):
+    """Phase 1b: the training recurrence kernels against their plain
+    versions, then timed beside cuDNN at the trainers' shapes."""
+    import torch
+
+    from nanosnp_tpu_torch.ops import lstm_train as T
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    def inputs(n, seq_len, hidden):
+        k = 1.0 / math.sqrt(hidden)
+
+        def u(*shape, scale=1.0):
+            return (torch.rand(*shape, generator=gen, device=dev) * 2 - 1) \
+                * scale
+
+        return (u(n, seq_len, 2, 4 * hidden, scale=3.0),
+                u(2, hidden, 4 * hidden, scale=k).bfloat16(),
+                u(n, seq_len, 2, hidden))
+
+    rows = []
+    for label, n, seq_len, d_in, hidden in TRAIN_SHAPES:
+        # the check: N not a multiple of either kernel's batch tile
+        xp, w, g = inputs(n + 1, seq_len, hidden)
+        hs, cs = T.lstm_recurrence_train(xp, w)
+        dxp, _ = T.lstm_recurrence_bwd(xp, w, hs, cs, g, with_dw=False)
+        dw = T.lstm_dw_reduce(dxp, hs)
+        torch.cuda.synchronize()
+        hs_p, cs_p = T.lstm_recurrence_train_plain(xp, w)
+        dxp_p, _ = T.lstm_recurrence_bwd_plain(xp, w, hs, cs, g,
+                                               with_dw=False)
+        errs = {"lstm_recurrence_train": max(_errs(hs, hs_p),
+                                             _errs(cs, cs_p)),
+                "lstm_recurrence_bwd": _errs(dxp, dxp_p),
+                "lstm_dw_reduce": _errs(dw, T.lstm_dw_reduce_plain(dxp, hs))}
+        for name, (err, rel) in errs.items():
+            tol = DW_TOL if name == "lstm_dw_reduce" else TRAIN_TOL
+            log(f"[check] {name:21s} {label:26s} N={n + 1} L={seq_len} "
+                f"H={hidden}: max|d|={err:.3e}, over max(1, max|want|) "
+                f"{rel:.3e} (tol {tol})")
+            if not rel <= tol:
+                raise AssertionError(f"{name} {label}: {rel} > {tol}")
+
+        xp, w, g = inputs(n, seq_len, hidden)
+        hs, cs = T.lstm_recurrence_train(xp, w)
+        dxp, _ = T.lstm_recurrence_bwd(xp, w, hs, cs, g, with_dw=False)
+        # cuDNN yardstick (never called by the port): bf16 nn.LSTM in
+        # training mode, in-projection included; its backward alone is
+        # timed by replaying autograd over one retained graph
+        lstm = torch.nn.LSTM(d_in, hidden, batch_first=True,
+                             bidirectional=True, device=dev,
+                             dtype=torch.bfloat16).train()
+        x = torch.randn(n, seq_len, d_in, device=dev, generator=gen,
+                        dtype=torch.bfloat16, requires_grad=True)
+        lib_fwd = cuda_time(lambda: lstm(x), 10)
+        out, _ = lstm(x)
+        g_lib = torch.randn_like(out)
+        lib_bwd = cuda_time(lambda: torch.autograd.grad(
+            out, [x, *lstm.parameters()], g_lib, retain_graph=True), 10)
+        # the dW product as one batched library matmul, operands laid out
+        # beforehand: [2, H, M] x [2, M, 4H], M = N (L-1)
+        a_lib = torch.stack([hs[:, :-1, 0].reshape(-1, hidden).T,
+                             hs[:, 1:, 1].reshape(-1, hidden).T])
+        b_lib = torch.stack([dxp[:, 1:, 0].reshape(-1, 4 * hidden),
+                             dxp[:, :-1, 1].reshape(-1, 4 * hidden)])
+        timed = {
+            "lstm_recurrence_train": (
+                lambda: T.lstm_recurrence_train(xp, w),
+                lambda: T.lstm_recurrence_train_plain(xp, w), lib_fwd,
+                T.train_cost(n, seq_len, hidden), PEAK_BF16_FLOPS),
+            "lstm_recurrence_bwd": (
+                lambda: T.lstm_recurrence_bwd(xp, w, hs, cs, g,
+                                              with_dw=False),
+                lambda: T.lstm_recurrence_bwd_plain(xp, w, hs, cs, g,
+                                                    with_dw=False),
+                lib_bwd, T.bwd_cost(n, seq_len, hidden), PEAK_BF16_FLOPS),
+            "lstm_dw_reduce": (
+                lambda: T.lstm_dw_reduce(dxp, hs),
+                lambda: T.lstm_dw_reduce_plain(dxp, hs),
+                cuda_time(lambda: torch.bmm(a_lib, b_lib), 10),
+                T.dw_cost(n, seq_len, hidden), PEAK_F32_FLOPS),
+        }
+        for name, (kern, plain, library_ms, (flop, nbytes), peak) in \
+                timed.items():
+            ms = cuda_time(kern, 10)
+            plain_ms = cuda_time(plain, 2)
+            t_ops = flop / peak * 1e3
+            t_bytes = nbytes / PEAK_BYTES * 1e3
+            rows.append(dict(
+                name=name, shape=label, N=n, L=seq_len, H=hidden,
+                max_abs_err=errs[name][0], ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes"))
+            log(f"[time]  {name:21s} {label:26s} N={n}: kernel {ms:.3f} ms, "
+                f"plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, "
+                f"bound {rows[-1]['bound_ms']:.4f} ms "
+                f"({rows[-1]['bound_by']})")
     return rows
 
 
@@ -354,6 +512,301 @@ def phase_slice(dev):
     return launches, stage_rows
 
 
+def _pileup_train_arrays(rng, n):
+    """Labeled pileup windows in the make-train-data layout: signed counts
+    (reference-matching reads negative), 90-dim one-hot labels."""
+    import numpy as np
+
+    from nanosnp_tpu_torch.train import data as D
+
+    matrix = rng.integers(-30, 30, (n, 33, 18)).astype(np.int32)
+    label = np.zeros((n, 90), np.int32)
+    label[np.arange(n), rng.integers(0, 21, n)] = 1
+    label[np.arange(n), 21 + rng.integers(0, 3, n)] = 1
+    label[np.arange(n), 24 + 16] = 1
+    label[np.arange(n), 57 + 16] = 1
+    return D.PileupTrainArrays(matrix, label, np.arange(n, dtype=np.int64),
+                               label[:, 22:24].any(1))
+
+
+def _haplotype_train_world(rng, work):
+    """A reference contig, haplotype shards in depth buckets 64 and 96, a
+    truth VCF with SNPs at about 40% of the sites, a BED over the contig."""
+    import numpy as np
+
+    from nanosnp_tpu_torch.io import bins
+    from nanosnp_tpu_torch.io.fasta import write_fasta
+
+    length = 400_000
+    seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, length)]
+    write_fasta(os.path.join(work, "ref.fa"), {"chr1": seq.tobytes().decode()})
+    shard_dir = os.path.join(work, "hap_train_shards")
+    os.makedirs(shard_dir)
+    pos = np.sort(rng.choice(np.arange(200, length - 200), 2 * HAP_TRAIN_SITES,
+                             replace=False)).astype(np.int64)
+    for i, depth in enumerate((64, 96)):
+        centers = pos[i::2]
+        n = len(centers)
+        bins.save_haplotype_shard(
+            os.path.join(shard_dir, f"chr1_d{depth}x{depth}.npz"),
+            bins.HaplotypeShard(
+                contig="chr1", candidate_positions=centers,
+                group_positions=centers[:, None]
+                + np.arange(-5, 6)[None, :] * 7,
+                pileup=_read_matrices(rng, n, depth, 33, 0),
+                haplotype=_read_matrices(rng, n, depth, 11, 0)))
+    lines = ["##fileformat=VCFv4.2",
+             "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\tS"]
+    for p in pos[rng.random(len(pos)) < 0.4]:
+        ref_b = chr(seq[p - 1])
+        alt = "ACGT"[("ACGT".index(ref_b) + 1) % 4]
+        gt = "0|1" if rng.random() < 0.6 else "1|1"
+        lines.append(f"chr1\t{p}\t.\t{ref_b}\t{alt}\t50\tPASS\t.\tGT\t{gt}")
+    with open(os.path.join(work, "truth.vcf"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(os.path.join(work, "conf.bed"), "w") as f:
+        f.write(f"chr1\t0\t{length}\n")
+    return shard_dir
+
+
+def _train_records(run_dir):
+    with open(os.path.join(run_dir, "scalars.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    if len(recs) != 4 or not all(math.isfinite(r["loss"]) for r in recs):
+        raise AssertionError(f"{run_dir}: bad scalars {recs}")
+    for name in ("best.ckpt", "last.ckpt"):
+        if not os.path.exists(os.path.join(run_dir, name)):
+            raise AssertionError(f"{run_dir}: no {name}")
+    return recs
+
+
+def phase_train(dev):
+    """Phase 3: train-pileup and train-haplotype through the CLI at full
+    model width on the card, then one full-width pileup training step's
+    gradients on the card against the plain versions on the CPU, then the
+    steady-state step profile."""
+    import numpy as np
+    import torch
+
+    from nanosnp_tpu_torch.config import PileupModelConfig, TrainConfig
+    from nanosnp_tpu_torch.models.convert import flatten_tree
+    from nanosnp_tpu_torch.models.pileup_model import (PileupModel,
+                                                       init_pileup_params,
+                                                       pileup_predict)
+    from nanosnp_tpu_torch.ops import bilstm as K
+    from nanosnp_tpu_torch.runtime import cli
+    from nanosnp_tpu_torch.train import data as D
+    from nanosnp_tpu_torch.train.losses import label_smoothing_loss
+    from nanosnp_tpu_torch.train.train_pileup import load_checkpoint
+
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(WORK)
+    rng = np.random.default_rng(SEED + 3)
+    t0 = time.monotonic()
+    data_dir = os.path.join(WORK, "pileup_train_data")
+    os.makedirs(data_dir)
+    arrays = _pileup_train_arrays(rng, PILEUP_TRAIN_ROWS)
+    D.save_train_arrays(os.path.join(data_dir, "chr1.npz"), arrays)
+    hap_shards = _haplotype_train_world(rng, WORK)
+    log(f"[data]  training worlds: {PILEUP_TRAIN_ROWS} pileup rows, "
+        f"{2 * HAP_TRAIN_SITES} haplotype sites "
+        f"({time.monotonic() - t0:.1f} s)")
+
+    out = os.path.join(WORK, "out")
+    launches, rows = {}, {}
+    for name, argv, batch in (
+            ("train-pileup", ["train-pileup", "--data", data_dir,
+                              "--batch-size", "2000"], 2000),
+            ("train-haplotype", ["train-haplotype", "--shards", hap_shards,
+                                 "--ref", os.path.join(WORK, "ref.fa"),
+                                 "--truth-vcf", os.path.join(WORK,
+                                                             "truth.vcf"),
+                                 "--bed", os.path.join(WORK, "conf.bed"),
+                                 "--batch-size", "512"], 512)):
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        cli.main(argv + ["--epochs", "2", "--val-fraction", "0.1", "-o", out])
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t
+        launches[name] = dict(K.LAUNCHES)
+        recs = _train_records(os.path.join(
+            out, name.replace("train-", "") + "_train"))
+        steps = recs[-1]["step"]
+        rows[name] = dict(steps=steps, batch=batch, seconds=dt,
+                          steps_per_s=steps / dt,
+                          sites_per_s=steps * batch / dt,
+                          final_train_loss=recs[-2]["loss"],
+                          final_val_loss=recs[-1]["loss"])
+        log(f"[{name}] {dt:.3f} s, {steps} steps, launches {launches[name]}")
+        log(f"[{name}] " + json.dumps(rows[name]))
+        for k in ("lstm_recurrence_train", "lstm_recurrence_bwd",
+                  "lstm_dw_reduce"):
+            if launches[name][k] <= 0:
+                raise AssertionError(f"{name}: {k} was never launched")
+
+    # the trained pileup checkpoint loads into the port's model and predicts
+    params, _ = load_checkpoint(os.path.join(out, "pileup_train",
+                                             "best.ckpt"))
+    with torch.inference_mode():
+        probs = pileup_predict(
+            PileupModel(PileupModelConfig(), params).to(dev),
+            torch.from_numpy(arrays.matrix[:4096].astype(np.float32)).to(dev),
+            torch.bfloat16)
+    if not all(bool(p.isfinite().all()) and abs(
+            p.sum(1).mean().item() - 1) < 1e-3 for p in probs):
+        raise AssertionError("trained pileup model: bad probabilities")
+
+    # one full-width training step's gradients: card (kernels) against the
+    # CPU (the kernels' plain versions, same cast sites)
+    mcfg = PileupModelConfig(dropout=0.0)
+    init = init_pileup_params(torch.Generator().manual_seed(SEED), mcfg)
+    idx = np.arange(GRAD_N)
+    batch = [torch.from_numpy(a) for a in (
+        arrays.matrix[idx].astype(np.float32),
+        arrays.label[idx, :21].argmax(1), arrays.label[idx, 21:24].argmax(1))]
+    smoothing = TrainConfig().optim.label_smoothing
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        model = PileupModel(mcfg, init).to(d)
+        x, gt, zy = (t.to(d) for t in batch)
+        g_logits, z_logits = model.forward_train(x, use_kernels=True)
+        loss = (label_smoothing_loss(g_logits, gt, smoothing)
+                + label_smoothing_loss(z_logits, zy, smoothing))
+        flat = flatten_tree(model.tree())
+        grads.append([(path, g.cpu()) for (path, _), g in zip(
+            flat, torch.autograd.grad(loss, [p for _, p in flat],
+                                      allow_unused=True,
+                                      materialize_grads=True))])
+    worst = 0.0
+    for (path, g), (_, w) in zip(*grads):
+        if path[0] in ("id1", "id2"):
+            continue
+        worst = max(worst, (g - w).abs().max().item()
+                    / max(w.abs().max().item(), 1e-12))
+    log(f"[check] full-width pileup step gradients, card vs CPU, N={GRAD_N}:"
+        f" worst max|d|/max|want| over leaves {worst:.3e} (tol {GRAD_TOL})")
+    if not worst <= GRAD_TOL:
+        raise AssertionError(f"card gradients disagree: {worst}")
+    profile = profile_train_steps(dev, arrays, rng)
+    log(json.dumps({"train_profile": profile}))
+    shutil.rmtree(WORK, ignore_errors=True)
+    return launches, rows
+
+
+def profile_train_steps(dev, arrays, rng):
+    """Steady-state training steps of both models at full width, apart from
+    the CLI's set-up: ms a step on the host clock (device synchronised; the
+    step includes the batch's host-to-device copy and the metric reads the
+    trainer makes), then torch.profiler over PROFILE_STEPS steps: device
+    busy time a step (the sum of device time of every kernel and copy: one
+    stream, so they do not overlap), its share of the step, the share of
+    the port's own kernels, and the five costliest device functions."""
+    import numpy as np
+    import torch
+
+    from nanosnp_tpu_torch.config import (HaplotypeModelConfig,
+                                          PileupModelConfig, TrainConfig)
+    from nanosnp_tpu_torch.models.haplotype_model import (
+        HaplotypeModel, init_haplotype_params)
+    from nanosnp_tpu_torch.models.pileup_model import (PileupModel,
+                                                       init_pileup_params)
+    from nanosnp_tpu_torch.train.optim import build_optimizer
+    from nanosnp_tpu_torch.train.train_haplotype import (
+        _device_batch, make_haplotype_train_step)
+    from nanosnp_tpu_torch.train.train_pileup import (init_state,
+                                                      make_pileup_train_step)
+
+    tcfg = TrainConfig()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    init_gen = torch.Generator().manual_seed(SEED)
+
+    def pileup_step():
+        mcfg = PileupModelConfig()
+        tx = build_optimizer(tcfg.optim, 100)
+        state = init_state(PileupModel(mcfg, init_pileup_params(
+            init_gen, mcfg)).to(dev), tx)
+        step = make_pileup_train_step(mcfg, tcfg, tx, use_kernels=True)
+        idx = np.arange(2000)
+        x = arrays.matrix[idx].astype(np.float32)
+        gt = arrays.label[idx, :21].argmax(1)
+        zy = arrays.label[idx, 21:24].argmax(1)
+
+        def run():
+            m = step(state, torch.from_numpy(x).to(dev),
+                     torch.from_numpy(gt).to(dev),
+                     torch.from_numpy(zy).to(dev), gen, 0.0)
+            return float(m["loss"]), m["gt_pred"].cpu(), m["zy_pred"].cpu()
+
+        return run
+
+    def haplotype_step():
+        mcfg = HaplotypeModelConfig()
+        tx = build_optimizer(tcfg.optim, 100)
+        state = init_state(HaplotypeModel(mcfg, init_haplotype_params(
+            init_gen, mcfg)).to(dev), tx)
+        step = make_haplotype_train_step(mcfg, tcfg, tx, use_kernels=True)
+        batch = {}
+        for pre, seq_len in (("p_", 33), ("h_", 11)):
+            view = _read_matrices(rng, 512, 64, seq_len, 0)
+            for key, name in (("sequences", "seq"), ("baseq", "baseq"),
+                              ("mapq", "mapq"), ("hap", "hap")):
+                batch[pre + name] = view[key]
+            batch[pre + "ref"] = rng.integers(0, 5, (512, seq_len)).astype(
+                np.float32)
+        batch["gt"] = rng.integers(0, 10, 512).astype(np.int32)
+        batch["zy"] = rng.integers(0, 3, 512).astype(np.int32)
+
+        def run():
+            m = step(state, _device_batch(batch, dev), gen, 0.0)
+            return float(m["loss"]), m["gt_pred"].cpu(), m["zy_pred"].cpu()
+
+        return run
+
+    out = {}
+    for name, make in (("train-pileup", pileup_step),
+                       ("train-haplotype", haplotype_step)):
+        run = make()
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        for _ in range(PROFILE_STEPS):
+            run()
+        torch.cuda.synchronize()
+        ms = (time.monotonic() - t) / PROFILE_STEPS * 1e3
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(PROFILE_STEPS):
+                run()
+            torch.cuda.synchronize()
+        # device-side events only (kernels, copies): the host ops that
+        # launch them carry the same time again as their own device time
+        dev_ms = {}
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            t_us = getattr(e, "self_device_time_total", None)
+            if t_us is None:
+                t_us = getattr(e, "self_cuda_time_total", 0)
+            if t_us > 0:
+                dev_ms[e.key] = t_us / 1e3 / PROFILE_STEPS
+        busy = sum(dev_ms.values())
+        ours = sum(v for k, v in dev_ms.items() if "lstm" in k)
+        top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:5]
+        out[name] = {
+            "ms_per_step": ms,
+            "device_busy_ms_per_step": busy if busy else None,
+            "device_busy_share": busy / ms if busy else None,
+            "port_kernels_ms_per_step": ours if busy else None,
+            "top_device_ms_per_step": [[k[:80], v] for k, v in top]}
+        log(f"[profile] {name}: {ms:.2f} ms a step, device busy "
+            + (f"{busy:.2f} ms ({busy / ms:.0%}), port kernels {ours:.2f} ms"
+               if busy else "not measured (no device time in the trace)"))
+    return out
+
+
 def check_probs(label, got, want):
     for g, w, head in zip(got, want, ("gt", "zy")):
         g = g.float().cpu()
@@ -400,11 +853,19 @@ def main() -> int:
     rows = phase_kernels(dev)
     log(f"[phase 1] {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
+    rows += phase_train_kernels(dev)
+    log(f"[phase 1b] {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
     launches, stage_rows = phase_slice(dev)
     log(f"[phase 2] {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    train_launches, train_rows = phase_train(dev)
+    launches.update(train_launches)
+    stage_rows.update(train_rows)
+    log(f"[phase 3] {time.monotonic() - t0:.1f} s")
 
     kernels = []
-    for name in ("bilstm_stream", "bilstm_center"):
+    for name in REPLACES:
         n_launch = sum(v[name] for v in launches.values())
         if n_launch <= 0:
             raise AssertionError(f"{name} was never launched on the path")
@@ -413,7 +874,7 @@ def main() -> int:
         top = max(mine, key=lambda r: r["bound_ms"])
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "nanosnp_tpu_torch/ops/csrc/bilstm.cu",
+            "source": f"nanosnp_tpu_torch/ops/csrc/{SOURCES[name]}",
             "replaces": REPLACES[name], "launches": n_launch,
             "launches_by_stage": {k: v[name] for k, v in launches.items()},
             "max_abs_err": max(r["max_abs_err"] for r in mine),

@@ -6,28 +6,37 @@ a copy): per layer `w_ih` [2, D, 4H] and `w_hh` [2, H, 4H] (x @ w, the
 direction stacked first), one folded bias `b` [2, 4H] = b_ih + b_hh, gate
 order i, f, g, o. Dense layers keep `w` [in, out] and `b` [out].
 
-Two encoders:
+Three encoders:
   bilstm_encoder        the f32 step loop, equal to the JAX lax.scan path
                         with compute_dtype=float32 (the CPU reference);
   bilstm_encoder_fused  the kernel path, mirroring the JAX package's
                         bilstm_encoder_pallas: one fused in-projection +
                         recurrence kernel per layer, bf16 activations
                         between layers, and under center_only a last layer
-                        that emits only the window-center state.
+                        that emits only the window-center state;
+  bilstm_encoder_train  the differentiable encoder of training, mirroring
+                        the JAX package's bilstm_encoder with a dropout rng:
+                        per layer one f32 in-projection matmul, then the
+                        recurrence (the training kernels with bf16 w_hh, or
+                        the f32 step loop under autograd), dropout between
+                        layers.
 """
 from __future__ import annotations
 
-from typing import Iterable, List, Mapping
+from typing import Iterable, List, Mapping, Optional
 
 import torch
 from torch import nn
 
 from ..ops.bilstm import bilstm_center, bilstm_stream
+from ..ops.lstm_train import lstm_recurrence, lstm_recurrence_train_plain
 
 
 def _param(a) -> nn.Parameter:
-    return nn.Parameter(torch.as_tensor(a, dtype=torch.float32),
-                        requires_grad=False)
+    """A trainable f32 parameter (a copy: training updates it in place).
+    The inference forwards run without gradients and record no graph."""
+    return nn.Parameter(torch.as_tensor(a, dtype=torch.float32)
+                        .detach().clone())
 
 
 class BiLSTMLayer(nn.Module):
@@ -42,12 +51,19 @@ class BiLSTMLayer(nn.Module):
         return self.w_hh.shape[1]
 
 
+    def tree(self) -> dict:
+        return {"w_ih": self.w_ih, "w_hh": self.w_hh, "b": self.b}
+
+
 class BiLSTM(nn.Module):
     """A stack of BiLSTM layers (dropout is a training concern: not here)."""
 
     def __init__(self, layers: Iterable[Mapping]):
         super().__init__()
         self.layers = nn.ModuleList(BiLSTMLayer(p) for p in layers)
+
+    def tree(self) -> list:
+        return [layer.tree() for layer in self.layers]
 
 
 class Dense(nn.Module):
@@ -67,10 +83,15 @@ class Dense(nn.Module):
                     + self.b)
         return x.float() @ self.w + self.b
 
+    def tree(self) -> dict:
+        return {"w": self.w, "b": self.b}
 
+
+@torch.no_grad()
 def bilstm_encoder(layers: Iterable[BiLSTMLayer],
                    x: torch.Tensor) -> torch.Tensor:
-    """f32 reference loop. x [N, L, D] -> [N, L, 2H] f32."""
+    """f32 reference loop of inference (no gradient). x [N, L, D] ->
+    [N, L, 2H] f32."""
     out = x.float()
     for layer in layers:
         n, seq_len, _ = out.shape
@@ -93,6 +114,7 @@ def bilstm_encoder(layers: Iterable[BiLSTMLayer],
     return out
 
 
+@torch.no_grad()
 def bilstm_encoder_fused(layers: Iterable[BiLSTMLayer], x: torch.Tensor,
                          center_only: bool = False) -> torch.Tensor:
     """Kernel path. x [N, L, D] -> [N, L, 2H] f32, or [N, 2H] f32 (the
@@ -125,6 +147,58 @@ def encoder_center(layers: Iterable[BiLSTMLayer], x: torch.Tensor,
     if x.is_cuda or compute_dtype == torch.bfloat16:
         return bilstm_encoder_fused(layers, x, center_only=True)
     return bilstm_encoder(layers, x)[:, x.shape[1] // 2]
+
+
+def bilstm_layer_train(layer: BiLSTMLayer, x: torch.Tensor,
+                       use_kernels: bool) -> torch.Tensor:
+    """One differentiable layer. x [N, L, D] -> [N, L, 2H] f32.
+
+    As the JAX package's _bilstm_layer with compute_dtype=float32: the
+    in-projection of every timestep and both directions is one f32 matmul
+    (the directions' w_ih side by side), xp [N, L, 2, 4H]. With use_kernels
+    the recurrence is the training kernels' autograd op with w_hh cast to
+    bf16 (the Pallas path's cast site; its gradient comes back through the
+    cast); otherwise the f32 step loop, differentiated by autograd."""
+    n, seq_len, d_in = x.shape
+    hidden = layer.hidden
+    w_ih = layer.w_ih.permute(1, 0, 2).reshape(d_in, 8 * hidden)
+    xp = (x @ w_ih + layer.b.reshape(8 * hidden)).view(n, seq_len, 2,
+                                                         4 * hidden)
+    if use_kernels:
+        hs = lstm_recurrence(xp, layer.w_hh.to(torch.bfloat16))
+    else:
+        hs, _ = lstm_recurrence_train_plain(xp, layer.w_hh)
+    return hs.reshape(n, seq_len, 2 * hidden)
+
+
+def bilstm_encoder_train(layers: Iterable[BiLSTMLayer], x: torch.Tensor, *,
+                         use_kernels: bool, dropout: float = 0.0,
+                         generator: Optional[torch.Generator] = None
+                         ) -> torch.Tensor:
+    """Training encoder. x [N, L, D] -> [N, L, 2H] f32. Dropout (between
+    layers, not after the last, as torch.nn.LSTM) is active only when a
+    generator is given: keep each value with probability 1 - dropout and
+    scale it by 1/keep."""
+    layers = list(layers)
+    out = x.float()
+    for idx, layer in enumerate(layers):
+        out = bilstm_layer_train(layer, out, use_kernels)
+        if idx < len(layers) - 1:
+            out = dropout_between_layers(out, dropout, generator)
+    return out
+
+
+def dropout_between_layers(out: torch.Tensor, dropout: float,
+                           generator: Optional[torch.Generator]
+                           ) -> torch.Tensor:
+    """Inverted dropout with masks from `generator`; identity without one
+    (inference) or at dropout 0."""
+    if dropout <= 0.0 or generator is None:
+        return out
+    keep = 1.0 - dropout
+    mask = torch.rand(out.shape, generator=generator,
+                      device=out.device) < keep
+    return torch.where(mask, out / keep, 0.0)
 
 
 def init_bilstm_params(gen: torch.Generator, input_size: int,

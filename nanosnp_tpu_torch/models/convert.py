@@ -7,7 +7,11 @@
     whose keys encode the tree path (`k:name` for a dict key, `i:3` for a
     list index), as written by the JAX package's train_pileup.py;
   - `params_from_jax`, the carrier from the JAX package's parameter tree
-    (as numpy arrays: `jax.tree.map(np.asarray, params)`) to the port's.
+    (as numpy arrays: `jax.tree.map(np.asarray, params)`) to the port's,
+    also for an optax LookaheadParams (fast, slow) pair; `params_to_numpy`,
+    the reverse, which the training checkpoints store;
+  - `flatten_tree` / `unflatten_like`, a tree's leaves with their paths in
+    JAX's order (dict keys sorted), for the optimizer and the archives.
 
 Torch LSTM layout: weight_ih_l{k}[_reverse] is [4H, D], gate order i,f,g,o.
 The parameter tree stores x @ W with the direction stacked first,
@@ -23,7 +27,8 @@ import torch
 
 
 def _t(a) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a, dtype=np.float32))
+    # a copy: arrays from JAX are read-only, and training updates in place
+    return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
 def _np(t) -> np.ndarray:
@@ -123,12 +128,54 @@ def haplotype_params_from_torch(sd: Mapping[str, Any],
 
 
 def params_from_jax(tree):
-    """JAX parameter tree of numpy arrays -> the same tree of f32 tensors."""
+    """JAX parameter tree of numpy arrays -> the same tree of f32 tensors.
+    An optax LookaheadParams (anything with `fast` and `slow`) becomes
+    {"fast": ..., "slow": ...}."""
+    if hasattr(tree, "fast") and hasattr(tree, "slow"):
+        return {"fast": params_from_jax(tree.fast),
+                "slow": params_from_jax(tree.slow)}
     if isinstance(tree, Mapping):
         return {k: params_from_jax(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_from_jax(v) for v in tree]
     return _t(tree)
+
+
+def params_to_numpy(tree):
+    """Parameter tree of tensors -> the same tree of f32 numpy arrays (the
+    layout the JAX package's checkpoints hold)."""
+    if isinstance(tree, Mapping):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to_numpy(v) for v in tree]
+    return _np(tree)
+
+
+def flatten_tree(tree, path=()):
+    """[(path, leaf)] of a nested dict/list tree, dict keys sorted (the
+    leaf order of jax.tree.leaves)."""
+    if isinstance(tree, Mapping):
+        return [item for k in sorted(tree)
+                for item in flatten_tree(tree[k], path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [item for i, v in enumerate(tree)
+                for item in flatten_tree(v, path + (i,))]
+    return [(path, tree)]
+
+
+def unflatten_like(tree, leaves):
+    """The tree `tree` with its leaves replaced, in flatten_tree order."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, Mapping):
+            built = {k: build(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return [build(v) for v in node]
+        return next(it)
+
+    return build(tree)
 
 
 def save_params_npz(path: str, params, dtype=np.float16) -> None:

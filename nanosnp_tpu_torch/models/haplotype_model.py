@@ -7,14 +7,18 @@ Counterpart of nanosnp_tpu/models/haplotype_model.py, inputs feature-last
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import torch
 from torch import nn
 
 from ..config import HaplotypeModelConfig
 from ..device import set_matmul_precision
-from .bilstm import BiLSTM, Dense, encoder_center
+from .bilstm import (BiLSTM, Dense, bilstm_encoder_train, encoder_center,
+                     init_bilstm_params, init_linear_params)
+
+_TREE = ("pileup_encoder", "pileup_proj", "haplotype_encoder",
+         "haplotype_proj", "dense", "gt", "zy")
 
 
 class HaplotypeModel(nn.Module):
@@ -30,10 +34,12 @@ class HaplotypeModel(nn.Module):
         self.gt = Dense(params["gt"])
         self.zy = Dense(params["zy"])
 
+    @torch.no_grad()
     def forward(self, pileup_x: torch.Tensor, haplotype_x: torch.Tensor,
                 compute_dtype: torch.dtype = torch.float32):
         """pileup_x [N, 33, 105], haplotype_x [N, 11, 105] -> (gt, zy)
-        logits."""
+        logits. Inference only (no gradient: the serving kernels have no
+        backward); training runs forward_train."""
         ctr_p = encoder_center(self.pileup_encoder.layers, pileup_x,
                                compute_dtype)
         ctr_h = encoder_center(self.haplotype_encoder.layers, haplotype_x,
@@ -42,6 +48,55 @@ class HaplotypeModel(nn.Module):
                           self.haplotype_proj(ctr_h, compute_dtype)], dim=-1)
         feat = torch.tanh(self.dense(feat, compute_dtype))         # [N, 256]
         return self.gt(feat, compute_dtype), self.zy(feat, compute_dtype)
+
+    def forward_train(self, pileup_x: torch.Tensor, haplotype_x: torch.Tensor,
+                      *, use_kernels: bool,
+                      generator: Optional[torch.Generator] = None):
+        """The JAX package's training branch of haplotype_forward
+        (compute_dtype f32): each branch's full encoder, with its own
+        dropout generator split off the given one, then the center slices
+        and the f32 head. -> (gt, zy) logits."""
+        gens = [None, None]
+        if generator is not None:
+            seeds = torch.randint(0, 2 ** 62, (2,), generator=generator,
+                                  device=generator.device).tolist()
+            gens = [torch.Generator(device=generator.device).manual_seed(s)
+                    for s in seeds]
+        cfg = self.cfg
+        enc_p = bilstm_encoder_train(self.pileup_encoder.layers, pileup_x,
+                                     use_kernels=use_kernels,
+                                     dropout=cfg.dropout, generator=gens[0])
+        enc_h = bilstm_encoder_train(self.haplotype_encoder.layers,
+                                     haplotype_x, use_kernels=use_kernels,
+                                     dropout=cfg.dropout, generator=gens[1])
+        feat = torch.cat([
+            self.pileup_proj(enc_p[:, cfg.pileup_length // 2]),
+            self.haplotype_proj(enc_h[:, cfg.haplotype_length // 2])], dim=-1)
+        feat = torch.tanh(self.dense(feat))
+        return self.gt(feat), self.zy(feat)
+
+    def tree(self) -> dict:
+        """The parameters in the JAX package's tree layout (the same
+        tensors, not copies)."""
+        return {k: getattr(self, k).tree() for k in _TREE}
+
+
+def init_haplotype_params(gen: torch.Generator,
+                          cfg: HaplotypeModelConfig) -> dict:
+    """Seeded weights at the configuration's full width (the layout of
+    the JAX package's init_haplotype_params; other random numbers)."""
+    h = cfg.hidden_size
+    return {
+        "pileup_encoder": init_bilstm_params(gen, cfg.pileup_dim, h,
+                                             cfg.lstm_layers),
+        "pileup_proj": init_linear_params(gen, 2 * h, h),
+        "haplotype_encoder": init_bilstm_params(gen, cfg.haplotype_dim, h,
+                                                cfg.lstm_layers),
+        "haplotype_proj": init_linear_params(gen, 2 * h, h),
+        "dense": init_linear_params(gen, 2 * h, h),
+        "gt": init_linear_params(gen, h, cfg.gt_num_class),
+        "zy": init_linear_params(gen, h, cfg.zy_num_class),
+    }
 
 
 def haplotype_forward(model: HaplotypeModel, pileup_x, haplotype_x, *,

@@ -8,15 +8,15 @@ FLOPs. The head is plain products outside any kernel.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import torch
 from torch import nn
 
 from ..config import PileupModelConfig
 from ..device import set_matmul_precision
-from .bilstm import (BiLSTM, Dense, encoder_center, init_bilstm_params,
-                     init_linear_params)
+from .bilstm import (BiLSTM, Dense, bilstm_encoder_train, encoder_center,
+                     init_bilstm_params, init_linear_params)
 
 HEADS = ("gt", "zy", "id1", "id2")
 
@@ -31,17 +31,41 @@ class PileupModel(nn.Module):
         self.dense = Dense(params["dense"])
         self.heads = nn.ModuleDict({k: Dense(params[k]) for k in HEADS})
 
+    @torch.no_grad()
     def forward(self, x: torch.Tensor,
                 compute_dtype: torch.dtype = torch.float32,
                 all_heads: bool = True):
         """x [N, 33, 18] -> (gt, zy, id1, id2) logits (id* None unless
-        all_heads)."""
+        all_heads). Inference only (no gradient: the serving kernels have
+        no backward); training runs forward_train."""
         ctr = encoder_center(self.encoder.layers, x, compute_dtype)
         feat = self.proj(ctr, compute_dtype)                       # [N, 128]
         feat = torch.tanh(self.dense(feat, compute_dtype))         # [N, 256]
         names = HEADS if all_heads else HEADS[:2]
         outs = [self.heads[k](feat, compute_dtype) for k in names]
         return tuple(outs) + (None,) * (4 - len(outs))
+
+    def forward_train(self, x: torch.Tensor, *, use_kernels: bool,
+                      generator: Optional[torch.Generator] = None):
+        """The JAX package's training branch of pileup_forward
+        (all_heads=False, compute_dtype f32): the full [N, L, 2H] encoder
+        with dropout between layers when a generator is given, then the
+        center slice and the f32 head. -> (gt, zy) logits."""
+        enc = bilstm_encoder_train(self.encoder.layers, x,
+                                   use_kernels=use_kernels,
+                                   dropout=self.cfg.dropout,
+                                   generator=generator)
+        feat = self.proj(enc[:, self.cfg.seq_len // 2])
+        feat = torch.tanh(self.dense(feat))
+        return self.heads["gt"](feat), self.heads["zy"](feat)
+
+    def tree(self) -> dict:
+        """The parameters in the JAX package's tree layout (the same
+        tensors, not copies)."""
+        out = {"encoder": self.encoder.tree(), "proj": self.proj.tree(),
+               "dense": self.dense.tree()}
+        out.update({k: self.heads[k].tree() for k in HEADS})
+        return out
 
 
 def init_pileup_params(gen: torch.Generator, cfg: PileupModelConfig) -> dict:

@@ -29,7 +29,10 @@ from typing import Dict
 
 import torch
 
-LAUNCHES: Dict[str, int] = {"bilstm_stream": 0, "bilstm_center": 0}
+# every CUDA kernel of the port (lstm_train.py's three counted here too)
+LAUNCHES: Dict[str, int] = {"bilstm_stream": 0, "bilstm_center": 0,
+                            "lstm_recurrence_train": 0,
+                            "lstm_recurrence_bwd": 0, "lstm_dw_reduce": 0}
 
 
 def reset_launch_counts() -> None:
@@ -117,13 +120,19 @@ def pack_weights(w_ih, w_hh) -> torch.Tensor:
     (lane l holds rows l//4 and l//4+8, k pairs 2(l%4) and 2(l%4)+8).
     -> [2, 4H/16, Kp/16, 32, 8] bf16, so that a warp loads one tile as
     32 contiguous 16-byte pieces."""
-    d_in, four_h = w_ih.shape[1], w_ih.shape[2]
+    d_in = w_ih.shape[1]
     d_pad = -(-d_in // 16) * 16
-    a = torch.cat([torch.nn.functional.pad(w_ih.transpose(1, 2),
-                                           (0, d_pad - d_in)),
-                   w_hh.transpose(1, 2)], dim=2)          # [2, 4H, Kp]
-    k_pad = a.shape[2]
-    tiles = a.reshape(2, four_h // 16, 16, k_pad // 16, 16).transpose(2, 3)
+    return pack_a_fragments(torch.cat(
+        [torch.nn.functional.pad(w_ih.transpose(1, 2), (0, d_pad - d_in)),
+         w_hh.transpose(1, 2)], dim=2))                   # [2, 4H, Kp]
+
+
+def pack_a_fragments(a: torch.Tensor) -> torch.Tensor:
+    """A [B, M, K] (M and K multiples of 16) -> [B, M/16, K/16, 32, 8]:
+    16x16 tiles, each in mma.m16n8k16 A-fragment order."""
+    batch, rows_m, k_pad = a.shape
+    tiles = a.reshape(batch, rows_m // 16, 16, k_pad // 16,
+                      16).transpose(2, 3)
     lane = torch.arange(32, device=a.device)
     rows = (lane // 4)[:, None] + torch.tensor(
         [0, 0, 8, 8, 0, 0, 8, 8], device=a.device)[None, :]

@@ -31,6 +31,15 @@ SOURCES: Dict[str, Dict[str, List]] = {
         # x, packed weights, b, out, n, seq_len, d_in, hidden, stream
         "nsp_bilstm_center": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
+    "lstm_train": {
+        # xp, packed w_hh^T, hs, cs, n, seq_len, hidden, stream
+        "nsp_lstm_fwd": [_P, _P, _P, _P, _I, _I, _I, _P],
+        # xp, packed w_hh^T, packed w_hh, hs, cs, g, dxp, n, seq_len,
+        # hidden, stream
+        "nsp_lstm_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        # dxp, hs, split scratch, dw, n, seq_len, hidden, splits, stream
+        "nsp_lstm_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,0 +1,307 @@
+"""The differentiable LSTM recurrence of training: forward and backward
+kernels, both directions.
+
+Counterpart of the JAX package's custom-VJP `_recurrence`
+(nanosnp_tpu/ops/pallas_lstm.py:389-420), which training reaches through
+`bilstm_layer_pallas`. Three wrappers around the CUDA kernels of
+`csrc/lstm_train.cu`, each with its plain PyTorch version beside it:
+
+  lstm_recurrence_train  (xp, w_hh) -> (hs, cs). Replaces `_train_kernel`
+                         (pallas_lstm.py:178).
+  lstm_recurrence_bwd    (xp, w_hh, hs, cs, g) -> (dxp, dW_hh): the
+                         reverse-time sweep, then `lstm_dw_reduce`.
+                         Replaces `_bwd_kernel` (pallas_lstm.py:235).
+  lstm_dw_reduce         (dxp, hs) -> dW_hh, the dW accumulation that
+                         `_bwd_kernel` runs in its body (per batch tile, in
+                         VMEM) and its wrapper sums over tiles.
+
+`lstm_recurrence(xp, w_hh)` is the autograd op over them.
+
+Layout, in true time order (direction 1 walks time backwards inside the
+kernels): xp and dxp [N, L, 2, 4H] f32 (x @ w_ih + b of both directions,
+so one matmul of x with the directions' w_ih side by side gives it);
+hs, cs and g [N, L, 2, H] f32, which reshape to the layer output
+[N, L, 2H] with no copy; w_hh and dW_hh [2, H, 4H] (x @ w layout).
+
+The dtype of w_hh is the compute dtype, as the Pallas path's
+`compute_dtype`: bf16 (the kernels; training casts w_hh to bf16) rounds
+h_{t-1} and, in the backward, dgates to bf16 before the products, with f32
+accumulation, and returns dW_hh as its f32 sum rounded to bf16. A wider
+w_hh (f32, or f64 for gradcheck) runs the plain versions without rounding.
+
+A wrapper takes the plain version only for tensors on the CPU. For CUDA
+tensors it launches the kernel or raises. `LAUNCHES` (shared with
+ops/bilstm.py) counts kernel launches, never plain-version calls.
+"""
+from __future__ import annotations
+
+import torch
+
+from .bilstm import LAUNCHES, pack_a_fragments
+
+
+def _check(xp, w_hh, *states) -> None:
+    if xp.dim() != 4 or xp.shape[2] != 2 or w_hh.dim() != 3:
+        raise ValueError("expected xp [N, L, 2, 4H] and w_hh [2, H, 4H], got "
+                         f"{tuple(xp.shape)} and {tuple(w_hh.shape)}")
+    n, seq_len, _, four_h = xp.shape
+    hidden = w_hh.shape[1]
+    if tuple(w_hh.shape) != (2, hidden, 4 * hidden) or four_h != 4 * hidden:
+        raise ValueError(f"shape mismatch: xp {tuple(xp.shape)}, w_hh "
+                         f"{tuple(w_hh.shape)}")
+    for s in states:
+        if tuple(s.shape) != (n, seq_len, 2, hidden):
+            raise ValueError(f"expected [N, L, 2, H] = {(n, seq_len, 2, hidden)}"
+                             f", got {tuple(s.shape)}")
+    devs = {t.device for t in (xp, w_hh, *states)}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on different devices: {devs}")
+    if xp.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {xp.device}")
+
+
+def _check_kernel_inputs(hidden: int, f32, bf16=()) -> None:
+    if any(t.dtype != torch.float32 for t in f32) or any(
+            t.dtype != torch.bfloat16 for t in bf16):
+        raise TypeError("the CUDA kernels take bf16 w_hh and f32 xp, hs, cs, "
+                        f"g, dxp; got {[t.dtype for t in (*f32, *bf16)]}")
+    if hidden % 16 or hidden > 256:
+        raise ValueError(f"the CUDA kernels take H a multiple of 16 up to 256"
+                         f", got {hidden}")
+    for t in (*f32, *bf16):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("kernel inputs must be contiguous and 16-byte "
+                             "aligned")
+
+
+def _round(h, w_dtype):
+    """h_{t-1} (or dgates) as the product's operand: rounded to bf16 when
+    the compute dtype is bf16, else unchanged."""
+    return h.bfloat16().to(h.dtype) if w_dtype == torch.bfloat16 else h
+
+
+def _order(seq_len: int, d: int):
+    """True time index of each step of direction d."""
+    return list(range(seq_len)) if d == 0 else list(range(seq_len - 1, -1, -1))
+
+
+def lstm_recurrence_train_plain(xp, w_hh):
+    """Step loop of `_train_kernel`. Differentiable by autograd (the f32
+    reference path trains through it). -> hs, cs [N, L, 2, H]."""
+    n, seq_len, _, four_h = xp.shape
+    hidden = four_h // 4
+    hs, cs = [], []
+    for d in (0, 1):
+        w = w_hh[d].to(xp.dtype)                  # bf16 values are exact
+        h = xp.new_zeros(n, hidden)
+        c = xp.new_zeros(n, hidden)
+        h_at, c_at = [None] * seq_len, [None] * seq_len
+        for t in _order(seq_len, d):
+            gates = xp[:, t, d] + _round(h, w_hh.dtype) @ w
+            i, f, g, o = gates.split(hidden, dim=1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+            h_at[t], c_at[t] = h, c
+        hs.append(torch.stack(h_at, dim=1))
+        cs.append(torch.stack(c_at, dim=1))
+    return torch.stack(hs, dim=2), torch.stack(cs, dim=2)
+
+
+def lstm_recurrence_bwd_plain(xp, w_hh, hs, cs, g, with_dw: bool = True):
+    """Step loop of `_bwd_kernel`, line by line, dW included (summed in
+    xp's dtype, then cast to w_hh's dtype as `_recurrence_bwd` does).
+    -> (dxp [N, L, 2, 4H], dW_hh [2, H, 4H] or None)."""
+    n, seq_len, _, four_h = xp.shape
+    hidden = four_h // 4
+    dxp = torch.empty_like(xp)
+    dw = xp.new_zeros(2, hidden, four_h)
+    for d in (0, 1):
+        w = w_hh[d].to(xp.dtype)
+        order = _order(seq_len, d)
+        dh = xp.new_zeros(n, hidden)
+        dc = xp.new_zeros(n, hidden)
+        for s in range(seq_len - 1, -1, -1):
+            t = order[s]
+            if s > 0:
+                h_prev, c_prev = hs[:, order[s - 1], d], cs[:, order[s - 1], d]
+            else:
+                h_prev, c_prev = dh.new_zeros(n, hidden), dh.new_zeros(n,
+                                                                        hidden)
+            c_t = cs[:, t, d]
+            gates = xp[:, t, d] + _round(h_prev, w_hh.dtype) @ w
+            ig, fg, gg, og = gates.split(hidden, dim=1)
+            ig, fg, og = torch.sigmoid(ig), torch.sigmoid(fg), torch.sigmoid(og)
+            gg = torch.tanh(gg)
+            tanh_ct = torch.tanh(c_t)
+            dh = g[:, t, d] + dh
+            do_pre = dh * tanh_ct * og * (1.0 - og)
+            dc = dh * og * (1.0 - tanh_ct * tanh_ct) + dc
+            di_pre = dc * gg * ig * (1.0 - ig)
+            df_pre = dc * c_prev * fg * (1.0 - fg)
+            dg_pre = dc * ig * (1.0 - gg * gg)
+            dgates = torch.cat([di_pre, df_pre, dg_pre, do_pre], dim=1)
+            if with_dw:
+                dw[d] += h_prev.T @ dgates
+            dh = _round(dgates, w_hh.dtype) @ w.T
+            dc = dc * fg
+            dxp[:, t, d] = dgates
+    return dxp, dw.to(w_hh.dtype) if with_dw else None
+
+
+def lstm_dw_reduce_plain(dxp, hs):
+    """dW[d] = sum over (n, t) of h_{t-1}[d]^T dxp[t, d], where h_{t-1} is
+    the state of direction d's previous step (none at its first step),
+    rounded to bf16."""
+    hidden = hs.shape[-1]
+    a = [hs[:, :-1, 0], hs[:, 1:, 1]]             # h_{t-1} of each step
+    b = [dxp[:, 1:, 0], dxp[:, :-1, 1]]
+    return torch.stack([
+        a[d].reshape(-1, hidden).T @ b[d].reshape(-1, 4 * hidden)
+        for d in (0, 1)]).bfloat16()
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise_on(err, name, n, seq_len, hidden):
+    if err:
+        raise RuntimeError(f"{name} launch failed: cudaError {err} "
+                           f"(N={n}, L={seq_len}, H={hidden})")
+
+
+def lstm_recurrence_train(xp, w_hh):
+    """xp [N, L, 2, 4H], w_hh [2, H, 4H] -> (hs, cs), both [N, L, 2, H]."""
+    _check(xp, w_hh)
+    if xp.device.type == "cpu":
+        return lstm_recurrence_train_plain(xp, w_hh)
+    from .build import library
+
+    n, seq_len, _, four_h = xp.shape
+    hidden = four_h // 4
+    _check_kernel_inputs(hidden, (xp,), (w_hh,))
+    hs = torch.empty(n, seq_len, 2, hidden, dtype=torch.float32,
+                     device=xp.device)
+    cs = torch.empty_like(hs)
+    if n and seq_len:
+        wpk = pack_a_fragments(w_hh.transpose(1, 2))     # w_hh^T [2, 4H, H]
+        with torch.cuda.device(xp.device):
+            err = library("lstm_train").nsp_lstm_fwd(
+                xp.data_ptr(), wpk.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+                n, seq_len, hidden, _stream(xp))
+        _raise_on(err, "lstm_recurrence_train", n, seq_len, hidden)
+        LAUNCHES["lstm_recurrence_train"] += 1
+    return hs, cs
+
+
+def lstm_recurrence_bwd(xp, w_hh, hs, cs, g, with_dw: bool = True):
+    """-> (dxp [N, L, 2, 4H] f32, dW_hh [2, H, 4H] in w_hh's dtype, or None
+    without with_dw)."""
+    _check(xp, w_hh, hs, cs, g)
+    if xp.device.type == "cpu":
+        return lstm_recurrence_bwd_plain(xp, w_hh, hs, cs, g, with_dw)
+    from .build import library
+
+    n, seq_len, _, four_h = xp.shape
+    hidden = four_h // 4
+    _check_kernel_inputs(hidden, (xp, hs, cs, g), (w_hh,))
+    dxp = torch.empty_like(xp)
+    if n and seq_len:
+        wpk_t = pack_a_fragments(w_hh.transpose(1, 2))   # [2, 4H, H]
+        wpk_h = pack_a_fragments(w_hh)                   # [2, H, 4H]
+        with torch.cuda.device(xp.device):
+            err = library("lstm_train").nsp_lstm_bwd(
+                xp.data_ptr(), wpk_t.data_ptr(), wpk_h.data_ptr(),
+                hs.data_ptr(), cs.data_ptr(), g.data_ptr(), dxp.data_ptr(),
+                n, seq_len, hidden, _stream(xp))
+        _raise_on(err, "lstm_recurrence_bwd", n, seq_len, hidden)
+        LAUNCHES["lstm_recurrence_bwd"] += 1
+    if not with_dw:
+        return dxp, None
+    return dxp, lstm_dw_reduce(dxp, hs)
+
+
+def dw_splits(n: int, seq_len: int, hidden: int) -> int:
+    """How many row blocks the dW kernel sums separately (then in order):
+    enough blocks for about four per SM of an H100, at least 64 rows each."""
+    tiles = 2 * -(-4 * hidden // 64) * -(-hidden // 64)
+    rows = n * max(seq_len - 1, 0)
+    return max(1, min(-(-528 // tiles), rows // 64))
+
+
+def lstm_dw_reduce(dxp, hs):
+    """dxp [N, L, 2, 4H] f32, hs [N, L, 2, H] f32 -> dW_hh [2, H, 4H] bf16:
+    the f32 sum in a fixed order, rounded to bf16 once."""
+    if dxp.dim() != 4 or hs.dim() != 4 or tuple(dxp.shape[:3]) != tuple(
+            hs.shape[:3]) or dxp.shape[3] != 4 * hs.shape[3]:
+        raise ValueError(f"expected dxp [N, L, 2, 4H] and hs [N, L, 2, H], "
+                         f"got {tuple(dxp.shape)} and {tuple(hs.shape)}")
+    if dxp.device != hs.device:
+        raise ValueError(f"tensors on different devices: {dxp.device}, "
+                         f"{hs.device}")
+    if dxp.device.type == "cpu":
+        return lstm_dw_reduce_plain(dxp, hs)
+    from .build import library
+
+    n, seq_len, _, hidden = hs.shape
+    _check_kernel_inputs(hidden, (dxp, hs))
+    dw = torch.zeros(2, hidden, 4 * hidden, dtype=torch.bfloat16,
+                     device=dxp.device)
+    if n and seq_len > 1:
+        splits = dw_splits(n, seq_len, hidden)
+        part = torch.empty(splits, 2, hidden, 4 * hidden, dtype=torch.float32,
+                           device=dxp.device)
+        with torch.cuda.device(dxp.device):
+            err = library("lstm_train").nsp_lstm_dw(
+                dxp.data_ptr(), hs.data_ptr(), part.data_ptr(), dw.data_ptr(),
+                n, seq_len, hidden, splits, _stream(dxp))
+        _raise_on(err, "lstm_dw_reduce", n, seq_len, hidden)
+        LAUNCHES["lstm_dw_reduce"] += 1
+    return dw
+
+
+class _Recurrence(torch.autograd.Function):
+    """Autograd op: forward `lstm_recurrence_train`, backward
+    `lstm_recurrence_bwd` (the custom VJP of the JAX package's
+    `_recurrence`)."""
+
+    @staticmethod
+    def forward(ctx, xp, w_hh):
+        hs, cs = lstm_recurrence_train(xp, w_hh)
+        ctx.save_for_backward(xp, w_hh, hs, cs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, g):
+        xp, w_hh, hs, cs = ctx.saved_tensors
+        dxp, dw = lstm_recurrence_bwd(xp, w_hh, hs, cs,
+                                      g.to(xp.dtype).contiguous())
+        return dxp, dw
+
+
+def lstm_recurrence(xp, w_hh):
+    """Differentiable recurrence: xp [N, L, 2, 4H], w_hh [2, H, 4H] (its
+    dtype the compute dtype) -> hs [N, L, 2, H]."""
+    return _Recurrence.apply(xp, w_hh)
+
+
+# (FLOP, bytes) each call must do and move: each input read once, each
+# output written once. Products in bf16 on the tensor cores except dW (f32).
+def train_cost(n: int, seq_len: int, hidden: int):
+    flop = 2 * (2 * n * seq_len) * 4 * hidden * hidden
+    state = n * seq_len * 2 * hidden * 4
+    return flop, 4 * state + 2 * hidden * 4 * hidden * 2 + 2 * state
+
+
+def bwd_cost(n: int, seq_len: int, hidden: int):
+    """The sweep alone (dW is `dw_cost`): two products per step."""
+    flop = 2 * 2 * (2 * n * seq_len) * 4 * hidden * hidden
+    state = n * seq_len * 2 * hidden * 4
+    return flop, 4 * state + 3 * state + 2 * hidden * 4 * hidden * 2 \
+        + 4 * state
+
+
+def dw_cost(n: int, seq_len: int, hidden: int):
+    rows = 2 * n * max(seq_len - 1, 0)
+    return (2 * rows * hidden * 4 * hidden,
+            rows * 5 * hidden * 4 + 2 * hidden * 4 * hidden * 2)

@@ -1,0 +1,407 @@
+"""Pileup-model training (counterpart of nanosnp_tpu/train/train_pileup.py;
+reference PileupModel/train.py).
+
+Loss = label-smoothed CE on the gt and zy heads only; Lookahead-Adam lr 1e-4
+with per-epoch 0.98 decay after epoch 10, grad clip 20
+(config/ont_pileup.yaml). On the card the recurrence runs the hand-written
+training kernels (forward and backward, bf16 w_hh), as the JAX package runs
+its Pallas recurrence on the TPU; on the CPU the default is the f32 step
+loop under autograd, as the JAX package runs its f32 scan off the TPU.
+`use_kernels` chooses explicitly (on the CPU it runs the kernels' plain
+versions).
+
+Per epoch: gt/zy confusion, accuracy and macro-F1 for the train and
+validation splits into scalars.jsonl; epoch_{n}.ckpt; best.ckpt on the
+validation gt macro-F1; at the end last.ckpt with the optimizer state.
+Checkpoints are the JAX trainer's pickle layout ({"params": numpy tree,
+"step", "epoch"}), so its load_checkpoint reads them.
+"""
+from __future__ import annotations
+
+import os
+import pickle
+import time
+from dataclasses import dataclass
+from typing import Callable, Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import PileupModelConfig, TrainConfig
+from ..device import resolve_device, set_matmul_precision
+from ..models.convert import (flatten_tree, load_params_npz, params_from_jax,
+                              params_to_numpy, save_params_npz,
+                              unflatten_like)
+from ..models.pileup_model import PileupModel, init_pileup_params
+from .losses import label_smoothing_loss
+from .metrics import ConfusionAccumulator, MetricsLogger
+from .optim import Optimizer, build_optimizer
+
+__all__ = ["TrainState", "EpochMeter", "freeze_mask_fn", "init_state",
+           "make_pileup_train_step", "make_pileup_eval_step", "train_pileup",
+           "save_checkpoint", "load_checkpoint", "resume_state",
+           "save_params_npz", "load_params_npz"]
+
+
+@dataclass
+class TrainState:
+    """The model holds the fast params; `slow` the Lookahead slow params
+    (a tree like model.tree(), None without Lookahead)."""
+    model: nn.Module
+    opt_state: dict
+    slow: Optional[dict] = None
+    step: int = 0
+    epoch: int = 0
+
+
+def init_state(model: nn.Module, tx: Optimizer) -> TrainState:
+    leaves = [p for _, p in flatten_tree(model.tree())]
+    slow = None
+    if tx.lookahead:
+        # distinct buffers, as wrap_params_for_lookahead makes
+        slow = unflatten_like(model.tree(),
+                              [p.detach().clone() for p in leaves])
+    return TrainState(model, tx.init(leaves), slow)
+
+
+def freeze_mask_fn(freeze_prefixes: Tuple[str, ...]):
+    """-> is_frozen(path): a leaf is frozen when a string key on its path
+    contains one of the patterns (substring match, so "encoder" freezes
+    both pileup_encoder and haplotype_encoder)."""
+    def is_frozen(path) -> bool:
+        return any(isinstance(k, str) and any(p in k for p in freeze_prefixes)
+                   for k in path)
+
+    return is_frozen
+
+
+def apply_gradients(state: TrainState, tx: Optimizer, loss: torch.Tensor,
+                    is_frozen, freeze_on: float) -> None:
+    """Gradients of `loss` with respect to the fast params (zero for a
+    leaf the loss does not reach, such as the unused indel heads, as
+    jax.grad gives), then one optimizer update in place."""
+    flat = flatten_tree(state.model.tree())
+    params = [p for _, p in flat]
+    grads = torch.autograd.grad(loss, params, allow_unused=True,
+                                materialize_grads=True)
+    scales = [1.0 - freeze_on if is_frozen(path) else 1.0 for path, _ in flat]
+    slow = None if state.slow is None else [
+        p for _, p in flatten_tree(state.slow)]
+    tx.step(params, grads, state.opt_state, slow, scales)
+
+
+def _head_metrics(gt, zy, gt_target, zy_target, smoothing):
+    gt_loss = label_smoothing_loss(gt, gt_target, smoothing)
+    zy_loss = label_smoothing_loss(zy, zy_target, smoothing)
+    loss = gt_loss + zy_loss
+    gt_pred = gt.argmax(-1)
+    acc = (gt_pred == gt_target).float().mean()
+    return loss, {"loss": loss.detach(), "gt_loss": gt_loss.detach(),
+                  "zy_loss": zy_loss.detach(), "gt_acc": acc,
+                  "gt_pred": gt_pred, "zy_pred": zy.argmax(-1)}
+
+
+def make_pileup_train_step(mcfg: PileupModelConfig, tcfg: TrainConfig,
+                           tx: Optimizer, use_kernels: bool):
+    """-> train_step(state, x, gt_target, zy_target, generator, freeze_on)
+    -> metrics; updates `state` in place. `generator` draws the dropout
+    masks (None: no dropout)."""
+    smoothing = tcfg.optim.label_smoothing
+    is_frozen = freeze_mask_fn(tuple(tcfg.freeze_prefixes))
+
+    def train_step(state: TrainState, x, gt_target, zy_target,
+                   generator: Optional[torch.Generator],
+                   freeze_on: float = 0.0) -> Dict[str, torch.Tensor]:
+        gt, zy = state.model.forward_train(x, use_kernels=use_kernels,
+                                           generator=generator)
+        loss, metrics = _head_metrics(gt, zy, gt_target, zy_target,
+                                      smoothing)
+        apply_gradients(state, tx, loss, is_frozen, freeze_on)
+        return metrics
+
+    return train_step
+
+
+def make_pileup_eval_step(mcfg: PileupModelConfig, tcfg: TrainConfig):
+    """Validation on the f32 path (the JAX eval step runs pileup_forward
+    with use_pallas=False): -> (loss, gt_pred, zy_pred)."""
+    smoothing = tcfg.optim.label_smoothing
+
+    @torch.no_grad()
+    def eval_step(model, x, gt_target, zy_target):
+        gt, zy = model.forward_train(x, use_kernels=False)
+        loss, m = _head_metrics(gt, zy, gt_target, zy_target, smoothing)
+        return loss, m["gt_pred"], m["zy_pred"]
+
+    return eval_step
+
+
+class EpochMeter:
+    """Accumulates loss + gt/zy confusion over one epoch's batches."""
+
+    def __init__(self, n_gt: int, n_zy: int):
+        self.gt = ConfusionAccumulator(n_gt)
+        self.zy = ConfusionAccumulator(n_zy)
+        self.loss_sum = 0.0
+        self.batches = 0
+
+    def update(self, loss, gt_pred, gt_true, zy_pred, zy_true) -> None:
+        self.loss_sum += float(loss)
+        self.batches += 1
+        self.gt.update(_host(gt_pred), _host(gt_true))
+        self.zy.update(_host(zy_pred), _host(zy_true))
+
+    def scalars(self) -> Dict[str, float]:
+        out = {"loss": round(self.loss_sum / max(self.batches, 1), 6)}
+        out.update(self.gt.summary("gt_"))
+        out.update(self.zy.summary("zy_"))
+        return out
+
+
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+class Trainer:
+    """What train_pileup and train_haplotype share: device, state,
+    dropout generator, epoch bookkeeping, validation and checkpoints. A
+    subclass supplies the model-specific parts: `run_step`, `run_eval` and
+    `labels`."""
+
+    def __init__(self, name, model_cls, mcfg, tcfg, init_params, device,
+                 use_kernels, steps_per_epoch, lr_steps_per_epoch, out_dir,
+                 resume_from, log_every):
+        self.dev = resolve_device(device)      # raises before any write
+        set_matmul_precision()
+        self.name, self.mcfg, self.tcfg = name, mcfg, tcfg
+        self.out_dir, self.log_every = out_dir, log_every
+        self.use_kernels = (self.dev.type == "cuda" if use_kernels is None
+                            else bool(use_kernels))
+        os.makedirs(out_dir, exist_ok=True)
+        self.tx = build_optimizer(tcfg.optim,
+                                  steps_per_epoch or lr_steps_per_epoch or 1000)
+        self.state = init_state(model_cls(mcfg, init_params).to(self.dev),
+                                self.tx)
+        self.generator = torch.Generator(device=self.dev).manual_seed(
+            tcfg.seed)
+        if resume_from:
+            _restore(self.state, resume_state(resume_from), self.generator)
+        from ..utils.profiling import count_parameters
+
+        print(f"[{name}] model parameters: "
+              f"{count_parameters(self.state.model.tree()):,}")
+        self.logger = MetricsLogger(out_dir)
+        self.meter = EpochMeter(mcfg.gt_num_class, mcfg.zy_num_class)
+        self.best_metric = float("-inf")
+        self.freeze = 0.0
+        self.t0 = time.monotonic()
+
+    def run_step(self, batch, freeze_on: float) -> Dict[str, torch.Tensor]:
+        """One optimizer step on a host batch -> its metrics."""
+        raise NotImplementedError
+
+    def run_eval(self, batch):
+        """-> (loss, gt_pred, zy_pred, gt_true, zy_true) of a host batch."""
+        raise NotImplementedError
+
+    def labels(self, batch):
+        """(gt, zy) of a host batch."""
+        raise NotImplementedError
+
+    def step(self, batch) -> None:
+        metrics = self.run_step(batch, self.freeze)
+        self.state.step += 1
+        gt_true, zy_true = self.labels(batch)
+        self.meter.update(metrics["loss"], metrics["gt_pred"], gt_true,
+                          metrics["zy_pred"], zy_true)
+        if self.state.step % self.log_every < 1:
+            dt = time.monotonic() - self.t0
+            print(f"[{self.name}] step {self.state.step} "
+                  f"loss {float(metrics['loss']):.4f} "
+                  f"gt_acc {float(metrics['gt_acc']):.4f} "
+                  f"({self.state.step / dt:.1f} steps/s)")
+
+    def validate(self, val_iter_factory) -> Optional[Dict[str, float]]:
+        if val_iter_factory is None:
+            return None
+        from .data import EPOCH_END
+
+        vm = EpochMeter(self.mcfg.gt_num_class, self.mcfg.zy_num_class)
+        for vb in val_iter_factory():
+            if vb is EPOCH_END:
+                continue
+            loss, gtp, zyp, gtt, zyt = self.run_eval(vb)
+            vm.update(loss, gtp, gtt, zyp, zyt)
+        return vm.scalars() if vm.batches else None
+
+    def end_epoch(self, val_iter_factory, eval_fn) -> None:
+        st = self.state
+        st.epoch += 1
+        train_scalars = self.meter.scalars()
+        self.logger.log(st.epoch, "train", train_scalars, step=st.step)
+        val_scalars = self.validate(val_iter_factory)
+        if val_scalars is not None:
+            self.logger.log(st.epoch, "val", val_scalars, step=st.step)
+        print(f"[{self.name}] epoch {st.epoch}: train {train_scalars}"
+              + (f" val {val_scalars}" if val_scalars else ""))
+        self.meter = EpochMeter(self.mcfg.gt_num_class, self.mcfg.zy_num_class)
+        save_checkpoint(os.path.join(self.out_dir, f"epoch_{st.epoch}.ckpt"),
+                        st)
+        # best-metric retention (reference train_dev.py:258-281)
+        metric = None
+        if eval_fn is not None:
+            metric = float(eval_fn(st))
+        elif val_scalars is not None:
+            metric = val_scalars["gt_macro_f1"]
+        if metric is not None and metric > self.best_metric:
+            self.best_metric = metric
+            save_checkpoint(os.path.join(self.out_dir, "best.ckpt"), st)
+        if self.tcfg.first_stage is not None \
+                and st.epoch >= self.tcfg.first_stage:
+            self.freeze = 1.0
+
+    def finish(self) -> TrainState:
+        save_checkpoint(os.path.join(self.out_dir, "last.ckpt"), self.state,
+                        include_optimizer=True, generator=self.generator)
+        return self.state
+
+
+class _PileupTrainer(Trainer):
+    def __init__(self, mcfg, tcfg, init_params, *args):
+        super().__init__("train_pileup", PileupModel, mcfg, tcfg, init_params,
+                         *args)
+        self._step = make_pileup_train_step(mcfg, tcfg, self.tx,
+                                            self.use_kernels)
+        self._eval = make_pileup_eval_step(mcfg, tcfg)
+
+    def _to_dev(self, batch):
+        x, gt, zy = batch
+        return (torch.from_numpy(np.asarray(x, np.float32)).to(self.dev),
+                torch.from_numpy(np.asarray(gt)).to(self.dev),
+                torch.from_numpy(np.asarray(zy)).to(self.dev))
+
+    def run_step(self, batch, freeze_on):
+        return self._step(self.state, *self._to_dev(batch), self.generator,
+                          freeze_on)
+
+    def run_eval(self, batch):
+        return (*self._eval(self.state.model, *self._to_dev(batch)),
+                batch[1], batch[2])
+
+    def labels(self, batch):
+        return batch[1], batch[2]
+
+
+def train_pileup(
+    data_iter: Iterator,
+    mcfg: PileupModelConfig,
+    tcfg: TrainConfig,
+    steps_per_epoch: Optional[int],
+    out_dir: str,
+    init_params=None,
+    device="cuda",
+    use_kernels: Optional[bool] = None,
+    log_every: int = 50,
+    max_steps: Optional[int] = None,
+    resume_from: Optional[str] = None,
+    eval_fn=None,
+    val_iter_factory: Optional[Callable[[], Iterator]] = None,
+    lr_steps_per_epoch: Optional[int] = None,
+) -> TrainState:
+    """Loop over an iterator of (x [B,33,18], gt [B], zy [B]) numpy batches
+    or data.EPOCH_END sentinels (preferred over steps_per_epoch when the
+    batch count depends on the data; the lr decay then uses
+    `lr_steps_per_epoch`, an estimate is fine). Runs on `device` (the card
+    by default; raises without one).
+
+    The JAX trainer stacks up to steps_per_call batches into one dispatch;
+    that is dispatch amortisation with the semantics of as many single
+    steps, which is what this loop runs."""
+    from .data import EPOCH_END
+
+    if init_params is None:
+        init_params = init_pileup_params(
+            torch.Generator().manual_seed(tcfg.seed), mcfg)
+    tr = _PileupTrainer(mcfg, tcfg, init_params, device, use_kernels,
+                        steps_per_epoch, lr_steps_per_epoch, out_dir,
+                        resume_from, log_every)
+    for item in data_iter:
+        if item is EPOCH_END:
+            tr.end_epoch(val_iter_factory, eval_fn)
+            continue
+        tr.step(item)
+        if steps_per_epoch and tr.state.step % steps_per_epoch == 0:
+            tr.end_epoch(val_iter_factory, eval_fn)
+        if max_steps and tr.state.step >= max_steps:
+            break
+    return tr.finish()
+
+
+def save_checkpoint(path: str, state: TrainState,
+                    include_optimizer: bool = False,
+                    generator: Optional[torch.Generator] = None) -> None:
+    """Inference checkpoints store the fast params only; with
+    include_optimizer the full training state too (fast and slow params,
+    optimizer state, and the dropout generator's state, so that a resumed
+    run draws the masks an uninterrupted one would)."""
+    tree = state.model.tree()
+    blob = {"params": params_to_numpy(tree), "step": state.step,
+            "epoch": state.epoch}
+    if include_optimizer:
+        o = state.opt_state
+        blob["full_params"] = {
+            "fast": blob["params"],
+            "slow": None if state.slow is None else params_to_numpy(
+                state.slow)}
+        blob["opt_state"] = {
+            "count": o["count"], "steps_since_sync": o["steps_since_sync"],
+            "mu": params_to_numpy(unflatten_like(tree, o["mu"])),
+            "nu": params_to_numpy(unflatten_like(tree, o["nu"]))}
+        if generator is not None:
+            blob["generator_state"] = generator.get_state().numpy()
+    with open(path, "wb") as f:
+        pickle.dump(blob, f)
+
+
+def load_checkpoint(path: str):
+    """-> (parameter tree of f32 tensors, the checkpoint's dict)."""
+    if path.endswith(".npz"):
+        return load_params_npz(path), {}
+    with open(path, "rb") as f:
+        blob = pickle.load(f)
+    return params_from_jax(blob["params"]), blob
+
+
+def resume_state(path: str) -> dict:
+    """A full training state saved with include_optimizer=True."""
+    with open(path, "rb") as f:
+        blob = pickle.load(f)
+    if "opt_state" not in blob:
+        raise ValueError(f"{path} was saved without optimizer state")
+    return blob
+
+
+def _restore(state: TrainState, blob: dict,
+             generator: Optional[torch.Generator]) -> None:
+    tree = state.model.tree()
+    with torch.no_grad():
+        for (_, p), (_, v) in zip(flatten_tree(tree), flatten_tree(
+                blob["full_params"]["fast"])):
+            p.copy_(torch.from_numpy(np.asarray(v)))
+        if state.slow is not None:
+            for (_, p), (_, v) in zip(flatten_tree(state.slow), flatten_tree(
+                    blob["full_params"]["slow"])):
+                p.copy_(torch.from_numpy(np.asarray(v)))
+    o = blob["opt_state"]
+    dev = flatten_tree(tree)[0][1].device
+    state.opt_state = {
+        "count": int(o["count"]),
+        "steps_since_sync": int(o["steps_since_sync"]),
+        "mu": [torch.from_numpy(np.asarray(v)).to(dev)
+               for _, v in flatten_tree(o["mu"])],
+        "nu": [torch.from_numpy(np.asarray(v)).to(dev)
+               for _, v in flatten_tree(o["nu"])]}
+    state.step, state.epoch = int(blob["step"]), int(blob["epoch"])
+    if generator is not None and "generator_state" in blob:
+        generator.set_state(torch.from_numpy(blob["generator_state"]))

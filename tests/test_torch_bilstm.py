@@ -147,7 +147,8 @@ def test_plain_versions_count_no_launches():
     x, w_ih, w_hh, b = _kernel_args(5)
     K.bilstm_stream(x, w_ih, w_hh, b)
     K.bilstm_center(x, w_ih, w_hh, b)
-    assert K.LAUNCHES == {"bilstm_stream": 0, "bilstm_center": 0}
+    assert {"bilstm_stream", "bilstm_center"} <= set(K.LAUNCHES)
+    assert set(K.LAUNCHES.values()) == {0}
 
 
 def test_layer_cost_counts_center_steps():

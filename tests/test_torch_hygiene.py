@@ -71,3 +71,24 @@ def test_cuda_entry_points_raise_without_a_card(tmp_path):
         stages.stage_haplotype_predict(cfg, None, str(tmp_path),
                                        str(tmp_path / "out.csv"), params={})
     assert not (tmp_path / "out.vcf").exists()
+
+
+def test_trainers_ask_for_the_card_and_raise_before_writing(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    from nanosnp_tpu_torch.config import (HaplotypeModelConfig,
+                                          PileupModelConfig, TrainConfig)
+    from nanosnp_tpu_torch.runtime import cli
+    from nanosnp_tpu_torch.train.train_haplotype import train_haplotype
+    from nanosnp_tpu_torch.train.train_pileup import train_pileup
+
+    for fn, cfg in ((train_pileup, PileupModelConfig()),
+                    (train_haplotype, HaplotypeModelConfig())):
+        out = tmp_path / fn.__name__
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn(iter([]), cfg, TrainConfig(), None, str(out))
+        assert not out.exists()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["train-pileup", "--data", str(tmp_path), "-o",
+                  str(tmp_path / "cli")])
+    assert not (tmp_path / "cli").exists()

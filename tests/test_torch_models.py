@@ -87,7 +87,9 @@ def test_bf16_dense_matches_jax_linear():
                                  jnp.asarray(x), jnp.bfloat16))
     got = Dense(params_from_jax(p))(torch.from_numpy(x), torch.bfloat16)
     assert got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-5)
+    # the parameters are trainable: the product is part of autograd's graph
+    np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-4,
+                               rtol=1e-5)
 
 
 def test_npz_loader_matches_jax_loader():
