@@ -13,6 +13,13 @@
            dW reduction) against their plain versions at the trainers'
            shapes (N not a multiple of the tiles), then times them beside
            cuDNN nn.LSTM in training mode (a yardstick only).
+  phase 1c holds the inference recurrence (f32 and bf16 xp, the CatModel
+           and pileup shapes), the center + head kernel (24 and 96 head
+           rows) and the two-layer kernel against their plain versions,
+           times them beside cuDNN nn.LSTM in inference mode (plus three
+           torch.matmul for the head; yardsticks only), and shows by the
+           launch counts that `lstm_recurrence` takes the inference kernel
+           without gradients and the training kernels with them.
   phase 2  drives the serving slice through its entry points at full
            model width:
            s2-predict (CLI) on a 100k-candidate columnar shard with seeded
@@ -22,6 +29,14 @@
            read after it. The outputs are checked for shape and finite
            values, and the models on the card against their plain versions
            on the CPU on a small input.
+  phase 2b s2-predict (CLI) again on a 24k-candidate shard under the default
+           route, NSP_FUSE_HEAD=1, NSP_FUSE_LAYERS=1 and a one-layer
+           encoder configuration; each fused route's pileup.vcf is held
+           against the default route's.
+  phase 2c the legacy CatModel at full width: two tags of 16k-group legacy
+           bins -> legacy-predict and legacy-eval (CLI, batch 8192) on the
+           card, its probabilities against the kernel path's plain version
+           on the CPU on a small input, then a few legacy-train steps.
   phase 3  trains both models through the CLI at full width: train-pileup
            on 40k labeled windows (batch 2000) and train-haplotype on 4k
            sites in depth buckets 64 and 96 with a truth VCF (batch 512),
@@ -67,6 +82,14 @@ N_CAND = 100_000        # ... gives ~100k candidates: 13 batches of 8192
 HAP_SITES = 8000        # haplotype sites in each of two depth buckets
 PILEUP_TRAIN_ROWS = 40_000   # 18 steps of 2000 a epoch after the 10% split
 HAP_TRAIN_SITES = 2000       # haplotype training sites per depth bucket
+ROUTE_CAND = 24_000     # s2 candidates of the route comparison: 3 batches
+# a fused route against the default route, row by row: the same call, and
+# QUAL (a log-odds of a probability, rounded to 0.01) within 0.02; rows
+# that differ (an argmax at a tie) may be at most one in a thousand
+ROUTE_QUAL_TOL = 0.02
+ROUTE_ROWS_OFF = 1e-3
+LEGACY_GROUPS = 16_384  # legacy groups a tag: two predict batches of 8192
+LEGACY_TRAIN_GROUPS = 1024   # of them, the part legacy-train sees
 GRAD_N = 256            # batch of the card-vs-CPU gradient check
 PROFILE_STEPS = 5       # training steps timed, and profiled, per model
 # gradients of one step, card vs CPU, over the largest entry of each leaf:
@@ -104,22 +127,41 @@ SHAPES = [
     ("s5 haplotype L1", "bilstm_stream", 11, 105, 256),
     ("s5 haplotype L2", "bilstm_stream", 11, 512, 256),
     ("s5 haplotype L3", "bilstm_center", 11, 512, 256),
+    # a one-layer pileup encoder: the K-fusable last layer of the JAX package
+    ("s2 one-layer L1", "bilstm_center", 33, 18, 64),
 ]
 REPLACES = {
     "bilstm_stream": "nanosnp_tpu/ops/pallas_lstm.py:423 (_enc_stream_kernel)"
                      ", nanosnp_tpu/ops/pallas_lstm.py:733 "
                      "(_enc_stream_kfused_kernel)",
-    "bilstm_center": "nanosnp_tpu/ops/pallas_lstm.py:501 (_enc_center_kernel)",
+    "bilstm_center": "nanosnp_tpu/ops/pallas_lstm.py:501 (_enc_center_kernel)"
+                     ", nanosnp_tpu/ops/pallas_lstm.py:770 "
+                     "(_enc_center_kfused_kernel)",
     "lstm_recurrence_train": "nanosnp_tpu/ops/pallas_lstm.py:178 "
                              "(_train_kernel)",
     "lstm_recurrence_bwd": "nanosnp_tpu/ops/pallas_lstm.py:235 (_bwd_kernel)",
     "lstm_dw_reduce": "nanosnp_tpu/ops/pallas_lstm.py:291 (_bwd_kernel's dW "
                       "accumulation) and :417 (its sum over batch tiles)",
+    "lstm_recurrence_infer": "nanosnp_tpu/ops/pallas_lstm.py:64 (_kernel)",
+    "bilstm_center_head": "nanosnp_tpu/ops/pallas_lstm.py:556 "
+                          "(_enc_center_head_kernel)",
+    "bilstm2_center": "nanosnp_tpu/ops/pallas_lstm.py:842 "
+                      "(_enc2_center_kernel)",
 }
 SOURCES = {"bilstm_stream": "bilstm.cu", "bilstm_center": "bilstm.cu",
            "lstm_recurrence_train": "lstm_train.cu",
            "lstm_recurrence_bwd": "lstm_train.cu",
-           "lstm_dw_reduce": "lstm_train.cu"}
+           "lstm_dw_reduce": "lstm_train.cu",
+           "lstm_recurrence_infer": "lstm_train.cu",
+           "bilstm_center_head": "bilstm_fused.cu",
+           "bilstm2_center": "bilstm_fused.cu"}
+# (label, N.., L, D of the cuDNN yardstick's first layer, H): the inference
+# recurrence's calls: five a CatModel batch, and the fused=False encoder
+INFER_SHAPES = [
+    ("CatModel", 11, 256, 256),
+    ("pileup fused=False", 33, 18, 64),
+]
+HEAD_ROWS = (24, 96)    # gt + zy, and all four heads (rows padded to 8)
 
 # H100 SXM f32 peak outside the tensor cores (NVIDIA data sheet): the dW
 # product runs in f32 on the CUDA cores
@@ -359,6 +401,37 @@ def _body(path):
         return [ln.rstrip("\n").split("\t") for ln in f if ln[0] != "#"]
 
 
+def _pileup_world(rng, work, contig, length, n_cand, flank=16):
+    """A reference contig and one columnar pileup shard of n_cand
+    candidates -> (fasta path, FastaReference, sequence, shard, shard dir,
+    candidate positions)."""
+    import numpy as np
+
+    from nanosnp_tpu_torch.io import bins
+    from nanosnp_tpu_torch.io.fasta import FastaReference, write_fasta
+
+    t0 = time.monotonic()
+    fa = os.path.join(work, "ref.fa")
+    write_fasta(fa, {contig: np.frombuffer(b"ACGT", np.uint8)[
+        rng.integers(0, 4, length)].tobytes().decode()})
+    ref = FastaReference(fa)
+    seq = ref.contig(contig)
+    pos = np.sort(rng.choice(np.arange(flank + 1, length - flank), n_cand,
+                             replace=False)).astype(np.int64)
+    win = pos[:, None] - 1 + np.arange(-flank, flank + 1)[None, :]
+    shard = bins.PileupShard(
+        contig=contig, positions=pos,
+        ref_seqs=seq[win].view(f"S{2 * flank + 1}").reshape(-1),
+        alt_info=np.full(n_cand, b"A:1", dtype="S3"),
+        columns=_pileup_columns(rng, seq), cand_off=pos - 1, flank=flank)
+    shard_dir = os.path.join(work, "pileup_shards")
+    os.makedirs(shard_dir)
+    bins.save_pileup_shard(os.path.join(shard_dir, f"{contig}.npz"), shard)
+    log(f"[data]  pileup world: {length} bp, {n_cand} candidates, "
+        f"{len(shard.columns)} columns ({time.monotonic() - t0:.1f} s)")
+    return fa, ref, seq, shard, shard_dir, pos
+
+
 def phase_slice(dev):
     import numpy as np
     import torch
@@ -369,7 +442,6 @@ def phase_slice(dev):
                                                       ref_position_codes,
                                                       ref_window_codes)
     from nanosnp_tpu_torch.io import bins
-    from nanosnp_tpu_torch.io.fasta import FastaReference, write_fasta
     from nanosnp_tpu_torch.models.convert import (load_params_npz,
                                                   pileup_checkpoint_from_params)
     from nanosnp_tpu_torch.models.haplotype_model import (HaplotypeModel,
@@ -385,30 +457,13 @@ def phase_slice(dev):
     rng = np.random.default_rng(SEED)
     cfg = PipelineConfig()
     contig, length, n_cand = "chr20", CONTIG_LEN, N_CAND
-    t0 = time.monotonic()
-    fa = os.path.join(WORK, "ref.fa")
-    write_fasta(fa, {contig: np.frombuffer(b"ACGT", np.uint8)[
-        rng.integers(0, 4, length)].tobytes().decode()})
-    ref = FastaReference(fa)
-    seq = ref.contig(contig)
     flank = 16
-    pos = np.sort(rng.choice(np.arange(flank + 1, length - flank), n_cand,
-                             replace=False)).astype(np.int64)
-    win = pos[:, None] - 1 + np.arange(-flank, flank + 1)[None, :]
-    shard = bins.PileupShard(
-        contig=contig, positions=pos,
-        ref_seqs=seq[win].view(f"S{2 * flank + 1}").reshape(-1),
-        alt_info=np.full(n_cand, b"A:1", dtype="S3"),
-        columns=_pileup_columns(rng, seq), cand_off=pos - 1, flank=flank)
-    shard_dir = os.path.join(WORK, "pileup_shards")
-    os.makedirs(shard_dir)
-    bins.save_pileup_shard(os.path.join(shard_dir, f"{contig}.npz"), shard)
+    fa, ref, seq, shard, shard_dir, pos = _pileup_world(
+        rng, WORK, contig, length, n_cand)
     gen = torch.Generator().manual_seed(SEED)
     pparams = init_pileup_params(gen, cfg.pileup_model)
     ckpt = os.path.join(WORK, "pileup.chkpt")
     torch.save(pileup_checkpoint_from_params(pparams), ckpt)
-    log(f"[data]  pileup world: {length} bp, {n_cand} candidates, "
-        f"{len(shard.columns)} columns ({time.monotonic() - t0:.1f} s)")
 
     stage_rows = {}
     launches = {}
@@ -510,6 +565,494 @@ def phase_slice(dev):
         check_probs("haplotype model (v6b)", got, want)
     shutil.rmtree(WORK, ignore_errors=True)
     return launches, stage_rows
+
+
+def phase_new_kernels(dev):
+    """Phase 1c: the inference recurrence, the center + head kernel and the
+    two-layer kernel against their plain versions, timed beside cuDNN."""
+    import torch
+
+    from nanosnp_tpu_torch.models.bilstm import (BiLSTM,
+                                                 bilstm_encoder_fused,
+                                                 bilstm_encoder_unfused,
+                                                 init_bilstm_params)
+    from nanosnp_tpu_torch.ops import bilstm as K
+    from nanosnp_tpu_torch.ops import bilstm_fused as F
+    from nanosnp_tpu_torch.ops import lstm_train as T
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+
+    def u(*shape, scale=1.0):
+        return (torch.rand(*shape, generator=gen, device=dev) * 2 - 1) * scale
+
+    def layer(d_in, hidden):
+        k = 1.0 / math.sqrt(hidden)
+        return (u(2, d_in, 4 * hidden, scale=k).bfloat16(),
+                u(2, hidden, 4 * hidden, scale=k).bfloat16(),
+                u(2, 4 * hidden, scale=2 * k))
+
+    def cudnn_ms(d_in, hidden, seq_len, layers=1, then=None):
+        lstm = torch.nn.LSTM(d_in, hidden, num_layers=layers,
+                             batch_first=True, bidirectional=True,
+                             device=dev, dtype=torch.bfloat16)
+        x = u(N_TIME, seq_len, d_in).bfloat16()
+
+        def run():
+            out, _ = lstm(x)
+            if then is not None:
+                then(out[:, seq_len // 2])
+
+        with torch.inference_mode():
+            return cuda_time(run, 5)
+
+    rows = []
+
+    def record(name, label, err, tol, kern, plain, library_ms, cost, **dims):
+        if not err <= tol:
+            raise AssertionError(f"{name} {label}: max|d| {err} > {tol}")
+        ms = cuda_time(kern, 10)
+        plain_ms = cuda_time(plain, 2)
+        flop, nbytes = cost
+        t_ops = flop / PEAK_BF16_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        rows.append(dict(
+            name=name, shape=label, **dims, max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes"))
+        log(f"[time]  {name:21s} {label:26s} N={N_TIME}: kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, bound "
+            f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']})")
+
+    # ---- lstm_recurrence_infer: f32 and bf16 xp
+    for label, seq_len, d_lib, hidden in INFER_SHAPES:
+        lib = cudnn_ms(d_lib, hidden, seq_len)
+        for xp_dtype in (torch.float32, torch.bfloat16):
+            w = u(2, hidden, 4 * hidden,
+                  scale=1.0 / math.sqrt(hidden)).bfloat16()
+            xp = u(N_CHECK, seq_len, 2, 4 * hidden, scale=3.0).to(xp_dtype)
+            got = T.lstm_recurrence_infer(xp, w)
+            torch.cuda.synchronize()
+            err, rel = _errs(got, T.lstm_recurrence_infer_plain(xp, w))
+            tag = f"{label}, xp {str(xp_dtype).split('.')[-1]}"
+            log(f"[check] lstm_recurrence_infer {tag:30s} N={N_CHECK} "
+                f"L={seq_len} H={hidden}: max|d|={err:.3e} (tol {TRAIN_TOL})")
+            xp = u(N_TIME, seq_len, 2, 4 * hidden, scale=3.0).to(xp_dtype)
+            record("lstm_recurrence_infer", tag, err, TRAIN_TOL,
+                   lambda: T.lstm_recurrence_infer(xp, w),
+                   lambda: T.lstm_recurrence_infer_plain(xp, w), lib,
+                   T.infer_cost(N_TIME, seq_len, hidden, xp.element_size()),
+                   L=seq_len, H=hidden)
+
+    # ---- bilstm_center_head at the s2 L2 shape
+    seq_len, d_in, hidden, p_dim, q_dim = 33, 128, 64, 128, 256
+    for n_rows in HEAD_ROWS:
+        head = (u(p_dim, 2 * hidden, scale=0.09).bfloat16(),
+                u(p_dim, scale=0.09),
+                u(q_dim, p_dim, scale=0.09).bfloat16(), u(q_dim, scale=0.09),
+                u(n_rows, q_dim, scale=0.06).bfloat16(),
+                u(n_rows, scale=0.06))
+        lay = layer(d_in, hidden)
+        x = u(N_CHECK, seq_len, d_in).bfloat16()
+        got = F.bilstm_center_head(x, *lay, head)
+        torch.cuda.synchronize()
+        err, _ = _errs(got, F.bilstm_center_head_plain(x, *lay, head))
+        label = f"s2 L2 + head, {n_rows} rows"
+        log(f"[check] bilstm_center_head    {label:30s} N={N_CHECK} "
+            f"L={seq_len} D={d_in} H={hidden}: max|d|={err:.3e} "
+            f"(tol {CENTER_TOL})")
+        x = u(N_TIME, seq_len, d_in).bfloat16()
+        wl = [t.float().T.contiguous() for t in head[::2]]
+
+        def lib_head(ctr):
+            feat = ctr.float() @ wl[0] + head[1]
+            feat = torch.tanh(feat @ wl[1] + head[3])
+            return feat @ wl[2] + head[5]
+
+        record("bilstm_center_head", label, err, CENTER_TOL,
+               lambda: F.bilstm_center_head(x, *lay, head),
+               lambda: F.bilstm_center_head_plain(x, *lay, head),
+               cudnn_ms(d_in, hidden, seq_len, then=lib_head),
+               F.center_head_cost(N_TIME, seq_len, d_in, hidden, p_dim,
+                                  q_dim, n_rows),
+               L=seq_len, D=d_in, H=hidden, rows=n_rows)
+        split = cuda_time(lambda: F.head_plain(K.bilstm_center(x, *lay),
+                                               head), 10)
+        # as the wrapper packs them: the head matrix padded to 16 rows
+        pad = (0, 0, 0, -n_rows % 16)
+        pack = cuda_time(lambda: [K.pack_a_fragments(t[None]) for t in (
+            head[0], head[2], torch.nn.functional.pad(head[4], pad))], 10)
+        rows[-1].update(center_then_plain_head_ms=split, head_pack_ms=pack)
+        log(f"[time]  the same as bilstm_center + plain head: {split:.3f} ms"
+            f"; packing the head's weights alone: {pack:.3f} ms")
+
+    # ---- bilstm2_center at the pileup encoder's shape
+    seq_len, d_in, hidden = 33, 18, 64
+    l1, l2 = layer(d_in, hidden), layer(2 * hidden, hidden)
+    x = u(N_CHECK, seq_len, d_in, scale=8.0).bfloat16()
+    got = F.bilstm2_center(x, *l1, *l2)
+    torch.cuda.synchronize()
+    err, _ = _errs(got, F.bilstm2_center_plain(x, *l1, *l2))
+    log(f"[check] bilstm2_center        pileup encoder N={N_CHECK} "
+        f"L={seq_len} D={d_in} H={hidden}: max|d|={err:.3e} "
+        f"(tol {CENTER_TOL})")
+    x = u(N_TIME, seq_len, d_in, scale=8.0).bfloat16()
+    record("bilstm2_center", "pileup encoder", err, CENTER_TOL,
+           lambda: F.bilstm2_center(x, *l1, *l2),
+           lambda: F.bilstm2_center_plain(x, *l1, *l2),
+           cudnn_ms(d_in, hidden, seq_len, layers=2),
+           F.two_layer_cost(N_TIME, seq_len, d_in, hidden),
+           L=seq_len, D=d_in, H=hidden)
+    split = cuda_time(lambda: K.bilstm_center(K.bilstm_stream(x, *l1), *l2),
+                      10)
+    rows[-1]["per_layer_kernels_ms"] = split
+    log(f"[time]  the same as bilstm_stream + bilstm_center: {split:.3f} ms")
+
+    # ---- the fused=False encoder (bf16 xp through the inference kernel)
+    # against the fused encoder, on the pileup model's seeded encoder
+    enc = BiLSTM(init_bilstm_params(torch.Generator().manual_seed(SEED),
+                                    d_in, hidden, 2)).to(dev)
+    K.reset_launch_counts()
+    a = bilstm_encoder_unfused(enc.layers, x, center_only=True)
+    b = bilstm_encoder_fused(enc.layers, x, center_only=True)
+    err, _ = _errs(a, b)
+    log(f"[check] bilstm_encoder_unfused against bilstm_encoder_fused: "
+        f"max|d|={err:.3e} (tol {STREAM_TOL}: xp is rounded to bf16 on one "
+        f"side only), launches {K.LAUNCHES['lstm_recurrence_infer']}")
+    if not err <= STREAM_TOL or K.LAUNCHES["lstm_recurrence_infer"] != 2:
+        raise AssertionError("fused=False encoder disagrees")
+
+    # ---- lstm_recurrence: which kernel with and without gradients
+    w = u(2, hidden, 4 * hidden, scale=0.125).bfloat16()
+    xp = u(64, seq_len, 2, 4 * hidden).requires_grad_()
+    seen = []
+    for grad in (False, True):
+        K.reset_launch_counts()
+        with torch.set_grad_enabled(grad):
+            T.lstm_recurrence(xp, w)
+        seen.append((K.LAUNCHES["lstm_recurrence_infer"],
+                     K.LAUNCHES["lstm_recurrence_train"]))
+    log(f"[check] lstm_recurrence launches (infer, train): gradients off "
+        f"{seen[0]}, on {seen[1]}")
+    if seen != [(1, 0), (0, 1)]:
+        raise AssertionError(f"lstm_recurrence dispatch: {seen}")
+    return rows
+
+
+def _qual_rows(path):
+    """{(contig, pos): (the row without QUAL, QUAL)} of a VCF body."""
+    return {(r[0], r[1]): (r[:5] + r[6:], float(r[5])) for r in _body(path)}
+
+
+def phase_routes(dev):
+    """Phase 2b: s2-predict on one shard under the default route, each
+    opt-in route, and the one-layer configuration."""
+    import numpy as np
+    import torch
+
+    from nanosnp_tpu_torch.config import PileupModelConfig
+    from nanosnp_tpu_torch.models.convert import pileup_checkpoint_from_params
+    from nanosnp_tpu_torch.models.pileup_model import (PileupModel,
+                                                       init_pileup_params,
+                                                       pileup_predict)
+    from nanosnp_tpu_torch.ops import bilstm as K
+    from nanosnp_tpu_torch.runtime import cli
+
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(WORK)
+    rng = np.random.default_rng(SEED + 4)
+    fa, _, _, shard, shard_dir, pos = _pileup_world(
+        rng, WORK, "chr20", 1_000_000, ROUTE_CAND)
+    one_cfg = PileupModelConfig(n_layers=1)
+    ckpts = {}
+    for name, mcfg in (("two", PileupModelConfig()), ("one", one_cfg)):
+        params = init_pileup_params(torch.Generator().manual_seed(SEED), mcfg)
+        ckpts[name] = os.path.join(WORK, f"pileup_{name}.chkpt")
+        torch.save(pileup_checkpoint_from_params(params), ckpts[name])
+    one_yaml = os.path.join(WORK, "one_layer.yaml")
+    with open(one_yaml, "w") as f:
+        f.write("pileup_model:\n  n_layers: 1\n")
+
+    routes = (("s2 default", {}, "two", []),
+              ("s2 NSP_FUSE_HEAD=1", {"NSP_FUSE_HEAD": "1"}, "two", []),
+              ("s2 NSP_FUSE_LAYERS=1", {"NSP_FUSE_LAYERS": "1"}, "two", []),
+              ("s2 both variables", {"NSP_FUSE_HEAD": "1",
+                                     "NSP_FUSE_LAYERS": "1"}, "two", []),
+              ("s2 one-layer", {}, "one", ["--config", one_yaml]))
+    # what each route must launch, and must not
+    expect = {"s2 default": ("bilstm_stream", "bilstm_center"),
+              "s2 NSP_FUSE_HEAD=1": ("bilstm_stream", "bilstm_center_head"),
+              "s2 NSP_FUSE_LAYERS=1": ("bilstm2_center",),
+              "s2 both variables": ("bilstm2_center",),
+              "s2 one-layer": ("bilstm_center",)}
+    launches, rows, vcfs = {}, {}, {}
+    saved = {k: os.environ.pop(k, None)
+             for k in ("NSP_FUSE_HEAD", "NSP_FUSE_LAYERS")}
+    try:
+        for name, env, ckpt, extra in routes:
+            out = os.path.join(WORK, name.replace(" ", "_").replace("=", ""))
+            os.environ.update(env)
+            K.reset_launch_counts()
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            cli.main(["s2-predict", "--shards", shard_dir, "--ref", fa,
+                      "--pileup-model", ckpts[ckpt], "-o", out, *extra])
+            torch.cuda.synchronize()
+            dt = time.monotonic() - t
+            for k in env:
+                del os.environ[k]
+            launches[name] = dict(K.LAUNCHES)
+            used = tuple(k for k, v in launches[name].items() if v)
+            log(f"[{name}] {dt:.3f} s, {ROUTE_CAND / dt:.0f} sites/s, "
+                f"launches {launches[name]}")
+            if set(used) != set(expect[name]):
+                raise AssertionError(f"{name}: launched {used}, expected "
+                                     f"{expect[name]}")
+            vcfs[name] = _qual_rows(os.path.join(out, "pileup.vcf"))
+            rows[name] = dict(sites=ROUTE_CAND, rows=len(vcfs[name]),
+                              seconds=dt, sites_per_s=ROUTE_CAND / dt)
+            if not vcfs[name] or not all(
+                    math.isfinite(q) for _, q in vcfs[name].values()):
+                raise AssertionError(f"{name}: pileup.vcf empty or malformed")
+    finally:
+        for k, v in saved.items():
+            if v is not None:
+                os.environ[k] = v
+    base = vcfs["s2 default"]
+    for name in ("s2 NSP_FUSE_HEAD=1", "s2 NSP_FUSE_LAYERS=1",
+                 "s2 both variables"):
+        got = vcfs[name]
+        off = len(set(base) ^ set(got))
+        worst = 0.0
+        for key in set(base) & set(got):
+            if base[key][0] != got[key][0] or abs(
+                    base[key][1] - got[key][1]) > ROUTE_QUAL_TOL:
+                off += 1
+            else:
+                worst = max(worst, abs(base[key][1] - got[key][1]))
+        rows[name].update(rows_off=off, max_qual_gap=worst)
+        log(f"[check] {name} against the default route: {len(got)} rows, "
+            f"{off} differ (allowed {ROUTE_ROWS_OFF:.1%}), others' max "
+            f"|dQUAL| {worst:.3f} (tol {ROUTE_QUAL_TOL})")
+        if off > ROUTE_ROWS_OFF * len(base):
+            raise AssertionError(f"{name}: {off} rows differ from the "
+                                 "default route's")
+    # the one-layer model on the card against its plain version on the CPU
+    with torch.inference_mode():
+        xw = torch.from_numpy(shard.matrix[:2048].astype(np.float32))
+        pm = PileupModel(one_cfg, init_pileup_params(
+            torch.Generator().manual_seed(SEED), one_cfg))
+        want = pileup_predict(pm, xw, torch.bfloat16)
+        got = pileup_predict(pm.to(dev), xw.to(dev), torch.bfloat16)
+        check_probs("one-layer pileup model", got, want)
+    shutil.rmtree(WORK, ignore_errors=True)
+    return launches, rows
+
+
+def _legacy_tag_arrays(rng, centers, bases, contig):
+    """legacy_group_arrays' output for one HP tag: per group a ragged-depth
+    het read matrix mostly agreeing with the tag's base at the site, an
+    11-mer surrounding matrix, qualities, and the edge/pair-route counts."""
+    import numpy as np
+
+    from nanosnp_tpu_torch.legacy.edges import (edge_transition_counts,
+                                                pair_route_counts)
+
+    n, depth = len(centers), 14
+    keep = rng.integers(6, depth + 1, n)
+    live = np.arange(depth)[None, :, None] < keep[:, None, None]
+
+    def reads(consensus, agree):
+        r = np.where(rng.random((n, depth, 11)) < agree, consensus,
+                     rng.integers(-1, 5, (n, depth, 11)))
+        return np.where(live, r, -2).astype(np.int32)
+
+    def quals(hi):
+        return np.where(live, rng.integers(0, hi, (n, depth, 11)),
+                        -2).astype(np.int32)
+
+    het = reads(bases[:, None, None], 0.85)
+    sur = reads(rng.integers(1, 5, (n, 1, 11)), 0.9)
+    group_pos = centers[:, None] + 9 * np.arange(-5, 6)[None, :]
+    out = {"position": [f"{contig}:{c}" for c in centers],
+           "group_positions": [np.array([f"{contig}:{p}" for p in g])
+                               for g in group_pos],
+           "edge_matrix": [edge_transition_counts(m[:k])
+                           for m, k in zip(het, keep)],
+           "pair_route": [pair_route_counts(m[:k])
+                          for m, k in zip(het, keep)]}
+    for key, m in (("", het), ("surrounding_", sur)):
+        out[f"{key}read_matrix"] = [a[:k] for a, k in zip(m, keep)]
+        out[f"{key}base_quality_matrix"] = [a[:k] for a, k in
+                                            zip(quals(40), keep)]
+        out[f"{key}mapping_quality_matrix"] = [a[:k] for a, k in
+                                               zip(quals(60), keep)]
+    return out
+
+
+def phase_legacy(dev):
+    """Phase 2c: the legacy CatModel at full width on the card, through
+    legacy-predict, legacy-eval and legacy-train."""
+    import numpy as np
+    import torch
+
+    from nanosnp_tpu_torch import constants as C
+    from nanosnp_tpu_torch.io.fasta import write_fasta
+    from nanosnp_tpu_torch.legacy.bins import load_legacy_bin, save_legacy_bin
+    from nanosnp_tpu_torch.legacy.catmodel import (CatModel, build_g_images,
+                                                   catmodel_predict,
+                                                   init_catmodel_params)
+    from nanosnp_tpu_torch.models.convert import (load_params_npz,
+                                                  save_params_npz)
+    from nanosnp_tpu_torch.ops import bilstm as K
+    from nanosnp_tpu_torch.runtime import cli
+
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(WORK)
+    rng = np.random.default_rng(SEED + 5)
+    t0 = time.monotonic()
+    contig, n = "chr20", LEGACY_GROUPS
+    length = 120 * n + 1000
+    seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, length)]
+    write_fasta(os.path.join(WORK, "ref.fa"), {contig: seq.tobytes().decode()})
+    centers = 200 + 120 * np.arange(n) + rng.integers(0, 60, n)
+    ref_code = np.searchsorted(np.frombuffer(b"ACGT", np.uint8),
+                               seq[centers - 1]) + 1
+    variant = rng.random(n) < 0.4
+    alt_code = (ref_code - 1 + rng.integers(1, 4, n)) % 4 + 1
+    het = rng.random(n) < 0.6
+    # tag 1 carries the alt at every variant, tag 2 only at homozygous ones
+    tag_bases = (np.where(variant, alt_code, ref_code),
+                 np.where(variant & ~het, alt_code, ref_code))
+    dirs = {}
+    for tag, bases in zip(("tag1", "tag2"), tag_bases):
+        arrays = _legacy_tag_arrays(rng, centers, bases, contig)
+        # numpy archives: the same datasets as the HDF5 bins, without h5py
+        for name, count in (("", n), ("train_", LEGACY_TRAIN_GROUPS)):
+            dirs[name + tag] = os.path.join(WORK, name + tag)
+            os.makedirs(dirs[name + tag])
+            save_legacy_bin(os.path.join(dirs[name + tag], f"{contig}.npz"),
+                            {k: v[:count] for k, v in arrays.items()})
+    lines = ["##fileformat=VCFv4.2",
+             "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\tS"]
+    for c, r, a, h in zip(centers[variant], ref_code[variant],
+                          alt_code[variant], het[variant]):
+        lines.append(f"{contig}\t{c}\t.\t{'ACGT'[r - 1]}\t{'ACGT'[a - 1]}\t50"
+                     f"\tPASS\t.\tGT\t{'0/1' if h else '1/1'}")
+    with open(os.path.join(WORK, "truth.vcf"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(os.path.join(WORK, "conf.bed"), "w") as f:
+        f.write(f"{contig}\t0\t{length}\n")
+    params = init_catmodel_params(torch.Generator().manual_seed(SEED))
+    model_path = os.path.join(WORK, "cat.npz")
+    save_params_npz(model_path, params)
+    log(f"[data]  legacy world: {n} groups in two tags, "
+        f"{int(variant.sum())} truth variants ({time.monotonic() - t0:.1f} s)")
+
+    truth = ["--ref", os.path.join(WORK, "ref.fa"), "--truth-vcf",
+             os.path.join(WORK, "truth.vcf"), "--bed",
+             os.path.join(WORK, "conf.bed")]
+
+    def tags(prefix=""):
+        return ["--data-tag1", dirs[prefix + "tag1"], "--data-tag2",
+                dirs[prefix + "tag2"]]
+
+    launches, rows = {}, {}
+    runs = (
+        ("legacy-predict", [*tags(), "--model", model_path, "--batch-size",
+                            str(N_TIME)], "legacy_calls.tsv"),
+        ("legacy-eval", [*tags(), *truth, "--model", model_path,
+                         "--batch-size", str(N_TIME)], "legacy_eval.tsv"),
+        ("legacy-train", [*tags("train_"), *truth, "--epochs", "1",
+                          "--batch-size", "64"], "catmodel.npz"))
+    for name, argv, product in runs:
+        out = os.path.join(WORK, "out_" + name)
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        if cli.main([name, *argv, "-o", out]) != 0:
+            raise AssertionError(f"{name} failed")
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t
+        launches[name] = dict(K.LAUNCHES)
+        log(f"[{name}] {dt:.3f} s, launches {launches[name]}")
+        rows[name] = dict(seconds=dt)
+        if not os.path.exists(os.path.join(out, product)):
+            raise AssertionError(f"{name}: no {product}")
+    for name in ("legacy-predict", "legacy-eval"):
+        if launches[name]["lstm_recurrence_infer"] <= 0 or launches[name][
+                "lstm_recurrence_train"]:
+            raise AssertionError(f"{name}: wrong recurrence kernel: "
+                                 f"{launches[name]}")
+    if any(launches["legacy-train"].values()):
+        raise AssertionError("legacy-train trains on the f32 recurrence: "
+                             f"no kernel expected, {launches['legacy-train']}")
+
+    calls = _body(os.path.join(WORK, "out_legacy-predict",
+                               "legacy_calls.tsv"))
+    if len(calls) != n or any(
+            len(r) != 4 or r[2] not in C.GT21_LABELS[:10]
+            or not math.isfinite(float(r[3])) for r in calls):
+        raise AssertionError(f"legacy_calls.tsv wrong: {len(calls)} rows")
+    rows["legacy-predict"].update(
+        sites=n, sites_per_s=n / rows["legacy-predict"]["seconds"])
+    evals = _body(os.path.join(WORK, "out_legacy-eval", "legacy_eval.tsv"))
+    if not evals or any(len(r) != 6 or (r[5] == "-") != (r[2] == r[3])
+                        for r in evals):
+        raise AssertionError("legacy_eval.tsv wrong")
+    rows["legacy-eval"].update(
+        sites=len(evals), sites_per_s=len(evals) / rows["legacy-eval"][
+            "seconds"], accuracy=sum(r[5] == "-" for r in evals) / len(evals))
+    trained = load_params_npz(os.path.join(WORK, "out_legacy-train",
+                                           "catmodel.npz"))
+    flat_ok = all(bool(torch.isfinite(t).all()) for t in (
+        trained["out"]["w"], trained["res_blocks"][5]["conv2"],
+        trained["percentage_rnn"][2]["w_hh"],
+        trained["res_blocks"][0]["bn1"]["var"]))
+    if not flat_ok or bool((trained["res_blocks"][0]["bn1"]["mean"]
+                            == 0).all()):
+        raise AssertionError("legacy-train: bad trained parameters")
+    for k, v in rows.items():
+        log(f"[{k}] " + json.dumps(v))
+
+    # the model on the card (inference kernel) against the kernel path's
+    # plain version on the CPU, on a small input
+    b1 = load_legacy_bin(os.path.join(dirs["train_tag1"], f"{contig}.npz"))
+    b2 = load_legacy_bin(os.path.join(dirs["train_tag2"], f"{contig}.npz"))
+    idx = np.arange(256)
+    imgs = [torch.from_numpy(build_g_images(
+        *[cli._legacy_tag_slices(b, idx, 20, key) for b in (b1, b2)],
+        20).astype(np.float32)) for key in ("surrounding_", "")]
+    model = CatModel(params)
+    with torch.inference_mode():
+        want = catmodel_predict(model, *imgs, use_kernels=True)
+        want_logits = model(*imgs, use_kernels=True)
+        model.to(dev)
+        on_card = [g.to(dev) for g in imgs]
+        got = catmodel_predict(model, *on_card).cpu()
+        got_logits = model(*on_card, use_kernels=True).cpu()
+    err = (got - want).abs().max().item()
+    # seeded weights give flat probabilities: hold the logits too, over
+    # their largest value
+    rel = _errs(got_logits, want_logits)[1]
+    agree = (got.argmax(1) == want.argmax(1)).float().mean().item()
+    log(f"[check] CatModel: card vs CPU max|dp|={err:.3e} (tol {PROB_TOL}), "
+        f"logits max|d| over max(1, max|want|) {rel:.3e} (tol {PROB_TOL}), "
+        f"argmax agreement {agree:.5f}")
+    if not (bool(got.isfinite().all()) and err <= PROB_TOL
+            and rel <= PROB_TOL and agree >= 0.99):
+        raise AssertionError("CatModel: card disagrees with CPU")
+
+    # one warm predict batch on the card, apart from the CLI's loading,
+    # image building and writing
+    big = [g.repeat(N_TIME // len(idx), 1, 1, 1) for g in on_card]
+    ms = cuda_time(lambda: catmodel_predict(model, *big), 3)
+    rows["legacy-predict"].update(batch_ms=ms,
+                                  batch_sites_per_s=N_TIME / ms * 1e3)
+    log(f"[time]  CatModel predict, one warm batch of {N_TIME}: {ms:.2f} ms "
+        f"({N_TIME / ms * 1e3:.0f} sites/s)")
+    shutil.rmtree(WORK, ignore_errors=True)
+    return launches, rows
 
 
 def _pileup_train_arrays(rng, n):
@@ -856,13 +1399,16 @@ def main() -> int:
     rows += phase_train_kernels(dev)
     log(f"[phase 1b] {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
-    launches, stage_rows = phase_slice(dev)
-    log(f"[phase 2] {time.monotonic() - t0:.1f} s")
-    t0 = time.monotonic()
-    train_launches, train_rows = phase_train(dev)
-    launches.update(train_launches)
-    stage_rows.update(train_rows)
-    log(f"[phase 3] {time.monotonic() - t0:.1f} s")
+    rows += phase_new_kernels(dev)
+    log(f"[phase 1c] {time.monotonic() - t0:.1f} s")
+    launches, stage_rows = {}, {}
+    for label, phase in (("2", phase_slice), ("2b", phase_routes),
+                         ("2c", phase_legacy), ("3", phase_train)):
+        t0 = time.monotonic()
+        phase_launches, phase_rows = phase(dev)
+        launches.update(phase_launches)
+        stage_rows.update(phase_rows)
+        log(f"[phase {label}] {time.monotonic() - t0:.1f} s")
 
     kernels = []
     for name in REPLACES:

@@ -6,14 +6,21 @@ a copy): per layer `w_ih` [2, D, 4H] and `w_hh` [2, H, 4H] (x @ w, the
 direction stacked first), one folded bias `b` [2, 4H] = b_ih + b_hh, gate
 order i, f, g, o. Dense layers keep `w` [in, out] and `b` [out].
 
-Three encoders:
+Four encoders:
   bilstm_encoder        the f32 step loop, equal to the JAX lax.scan path
                         with compute_dtype=float32 (the CPU reference);
   bilstm_encoder_fused  the kernel path, mirroring the JAX package's
                         bilstm_encoder_pallas: one fused in-projection +
                         recurrence kernel per layer, bf16 activations
                         between layers, and under center_only a last layer
-                        that emits only the window-center state;
+                        that emits only the window-center state; with a
+                        head, that layer can apply it in the kernel, and
+                        under NSP_FUSE_LAYERS=1 a two-layer encoder runs
+                        as one kernel;
+  bilstm_encoder_unfused  the JAX package's bilstm_encoder_pallas(fused=
+                        False): per layer one in-projection product outside
+                        the kernel, rounded to bf16, then the inference
+                        recurrence kernel;
   bilstm_encoder_train  the differentiable encoder of training, mirroring
                         the JAX package's bilstm_encoder with a dropout rng:
                         per layer one f32 in-projection matmul, then the
@@ -23,13 +30,18 @@ Three encoders:
 """
 from __future__ import annotations
 
-from typing import Iterable, List, Mapping, Optional
+import os
+from typing import Iterable, List, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
 
 from ..ops.bilstm import bilstm_center, bilstm_stream
-from ..ops.lstm_train import lstm_recurrence, lstm_recurrence_train_plain
+from ..ops.bilstm_fused import (bilstm2_center, bilstm_center_head,
+                                center_head_supported, head_plain,
+                                two_layer_supported)
+from ..ops.lstm_train import (lstm_recurrence, lstm_recurrence_infer,
+                              lstm_recurrence_train_plain)
 
 
 def _param(a) -> nn.Parameter:
@@ -114,28 +126,90 @@ def bilstm_encoder(layers: Iterable[BiLSTMLayer],
     return out
 
 
+def _kernel_weights(layer: BiLSTMLayer):
+    return (layer.w_ih.bfloat16().contiguous(),
+            layer.w_hh.bfloat16().contiguous(), layer.b.float().contiguous())
+
+
+def k_fusable(d_in: int, hidden: int) -> bool:
+    """The JAX package's K-fusion test (in-projection and hidden
+    contraction within one 128-deep tile). Here it only routes: a K-fusable
+    last layer keeps its head outside the kernel, as there."""
+    return -(-d_in // 16) * 16 + hidden <= 128 and hidden % 16 == 0
+
+
 @torch.no_grad()
 def bilstm_encoder_fused(layers: Iterable[BiLSTMLayer], x: torch.Tensor,
-                         center_only: bool = False) -> torch.Tensor:
+                         center_only: bool = False,
+                         head: Optional[Sequence[torch.Tensor]] = None
+                         ) -> torch.Tensor:
     """Kernel path. x [N, L, D] -> [N, L, 2H] f32, or [N, 2H] f32 (the
-    state at t = L//2) when center_only."""
+    state at t = L//2) when center_only. With `head` (center_only; the
+    tuple of ops.bilstm_fused) it returns the head's logits [N, R]: from
+    inside the last layer's kernel where that layer is not K-fusable and
+    the kernel takes the shape, else from the plain head on the center
+    state. Under NSP_FUSE_LAYERS=1 (read at call time) a center-only
+    two-layer encoder of equal widths runs as one kernel where
+    `two_layer_supported` holds."""
     layers = list(layers)
-    seq_len = x.shape[1]
+    if head is not None and not center_only:
+        raise ValueError("a head needs center_only")
+    seq_len, d_in = x.shape[1], x.shape[2]
     h = x.bfloat16().contiguous()
+    if (center_only and len(layers) == 2
+            and os.environ.get("NSP_FUSE_LAYERS", "0") == "1"):
+        l1, l2 = layers
+        if (l2.hidden == l1.hidden and l2.w_ih.shape[1] == 2 * l1.hidden
+                and two_layer_supported(seq_len, d_in, l1.hidden)):
+            ctr = bilstm2_center(h, *_kernel_weights(l1),
+                                 *_kernel_weights(l2))
+            return ctr if head is None else head_plain(ctr, head)
     hs = None
     for idx, layer in enumerate(layers):
         last = idx == len(layers) - 1
-        w_ih = layer.w_ih.bfloat16().contiguous()
-        w_hh = layer.w_hh.bfloat16().contiguous()
-        b = layer.b.float().contiguous()
+        w_ih, w_hh, b = _kernel_weights(layer)
         if last and center_only and seq_len % 2 == 1:
-            return bilstm_center(h, w_ih, w_hh, b)
+            d_l, hidden = h.shape[2], layer.hidden
+            if (head is not None and not k_fusable(d_l, hidden)
+                    and center_head_supported(seq_len, d_l, hidden,
+                                              head[0].shape[0],
+                                              head[2].shape[0])):
+                return bilstm_center_head(h, w_ih, w_hh, b, head)
+            ctr = bilstm_center(h, w_ih, w_hh, b)
+            return ctr if head is None else head_plain(ctr, head)
         hs = bilstm_stream(h, w_ih, w_hh, b,
                            torch.float32 if last else torch.bfloat16)
         h = hs.bfloat16()
     if center_only:
-        return hs[:, seq_len // 2]
+        ctr = hs[:, seq_len // 2]
+        return ctr if head is None else head_plain(ctr, head)
     return hs
+
+
+@torch.no_grad()
+def bilstm_encoder_unfused(layers: Iterable[BiLSTMLayer], x: torch.Tensor,
+                           center_only: bool = False) -> torch.Tensor:
+    """The `fused=False` route: per layer the in-projection of every
+    timestep as one product outside the kernel (bf16 operands, f32
+    accumulation, plus bias, rounded to bf16), then the inference
+    recurrence kernel on that bf16 xp; bf16 activations between layers.
+    x [N, L, D] -> [N, L, 2H] f32, or [N, 2H] f32 when center_only."""
+    n, seq_len, _ = x.shape
+    h = x.bfloat16()
+    hs = None
+    for layer in layers:
+        hidden = layer.hidden
+        w_ih = layer.w_ih.bfloat16().permute(1, 0, 2).reshape(-1, 8 * hidden)
+        # products of bf16 values summed in f32 (a bf16 matmul would round
+        # its output before the bias add)
+        xp = (h.float() @ w_ih.float()
+              + layer.b.float().reshape(8 * hidden)).bfloat16()
+        hs = lstm_recurrence_infer(
+            xp.view(n, seq_len, 2, 4 * hidden).contiguous(),
+            layer.w_hh.bfloat16().contiguous()).reshape(n, seq_len,
+                                                        2 * hidden)
+        h = hs.bfloat16()
+    return hs[:, seq_len // 2] if center_only else hs
 
 
 def encoder_center(layers: Iterable[BiLSTMLayer], x: torch.Tensor,

@@ -3,13 +3,17 @@
   - reference torch checkpoints -> the port's parameter tree
     (`pileup_params_from_torch`, `haplotype_params_from_torch`), and the
     reverse for the pileup checkpoint (`pileup_checkpoint_from_params`);
+  - a reference CatModel state_dict -> the legacy CatModel's tree
+    (`catmodel_params_from_torch`: conv weights stay OIHW, BatchNorm
+    becomes `scale/bias/mean/var`);
   - the fp16 npz parameter archive (`load_params_npz`/`save_params_npz`),
     whose keys encode the tree path (`k:name` for a dict key, `i:3` for a
     list index), as written by the JAX package's train_pileup.py;
   - `params_from_jax`, the carrier from the JAX package's parameter tree
     (as numpy arrays: `jax.tree.map(np.asarray, params)`) to the port's,
     also for an optax LookaheadParams (fast, slow) pair; `params_to_numpy`,
-    the reverse, which the training checkpoints store;
+    the reverse, which the training checkpoints store. Both, and the
+    archive, walk any nested dict/list tree, the CatModel's included;
   - `flatten_tree` / `unflatten_like`, a tree's leaves with their paths in
     JAX's order (dict keys sorted), for the optimizer and the archives.
 
@@ -124,6 +128,46 @@ def haplotype_params_from_torch(sd: Mapping[str, Any],
         "dense": _linear_from_torch(sd, "forward_layer.dense"),
         "gt": _linear_from_torch(sd, "forward_layer.genotype_layer"),
         "zy": _linear_from_torch(sd, "forward_layer.zygosity_layer"),
+    }
+
+
+def catmodel_params_from_torch(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """A reference CatModel state_dict (HaplotypeModel/model.py:201) ->
+    the legacy CatModel's parameter tree. Values may be tensors or numpy
+    arrays."""
+    def bn(prefix):
+        return {"scale": _t(_np(sd[f"{prefix}.weight"])),
+                "bias": _t(_np(sd[f"{prefix}.bias"])),
+                "mean": _t(_np(sd[f"{prefix}.running_mean"])),
+                "var": _t(_np(sd[f"{prefix}.running_var"]))}
+
+    def lin(prefix):
+        return {"w": _t(_np(sd[f"{prefix}.weight"]).T),
+                "b": _t(_np(sd[f"{prefix}.bias"]))}
+
+    blocks = []
+    for i in range(6):
+        base = f"haplotype_base.cnn.conv{i}"
+        blocks.append({
+            "conv1": _t(_np(sd[f"{base}.base.conv{i}_base_conv1.weight"])),
+            "bn1": bn(f"{base}.base.conv{i}_base_bn1"),
+            "conv2": _t(_np(sd[f"{base}.base.conv{i}_base_conv2.weight"])),
+            "bn2": bn(f"{base}.base.conv{i}_base_bn2"),
+            "shortcut": _t(_np(
+                sd[f"{base}.shortcut.conv{i}_shortcut_conv1.weight"])),
+        })
+    return {
+        "percentage_rnn": lstm_layers_from_torch(
+            sd, "haplotype_percentage.rnn.", 3),
+        "percentage_proj": lin("haplotype_percentage.out_layer"),
+        "res_blocks": blocks,
+        "crnn_lstm1": lstm_layers_from_torch(
+            sd, "haplotype_base.rnn.0.rnn.", 1),
+        "crnn_proj1": lin("haplotype_base.rnn.0.embedding"),
+        "crnn_lstm2": lstm_layers_from_torch(
+            sd, "haplotype_base.rnn.1.rnn.", 1),
+        "crnn_proj2": lin("haplotype_base.rnn.1.embedding"),
+        "out": lin("out_layer"),
     }
 
 

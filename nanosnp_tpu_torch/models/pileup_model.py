@@ -4,10 +4,13 @@
 Counterpart of nanosnp_tpu/models/pileup_model.py. As there, the window
 center is sliced before the head: proj and dense are pointwise over time,
 so applying them once at the center is the same math with 33x fewer head
-FLOPs. The head is plain products outside any kernel.
+FLOPs. The head is plain products outside any kernel, unless
+NSP_FUSE_HEAD=1 (the JAX package's variable, read at call time) asks the
+last encoder layer's kernel to apply it.
 """
 from __future__ import annotations
 
+import os
 from typing import Mapping, Optional
 
 import torch
@@ -15,7 +18,8 @@ from torch import nn
 
 from ..config import PileupModelConfig
 from ..device import set_matmul_precision
-from .bilstm import (BiLSTM, Dense, bilstm_encoder_train, encoder_center,
+from .bilstm import (BiLSTM, Dense, bilstm_encoder_fused,
+                     bilstm_encoder_train, encoder_center,
                      init_bilstm_params, init_linear_params)
 
 HEADS = ("gt", "zy", "id1", "id2")
@@ -38,12 +42,34 @@ class PileupModel(nn.Module):
         """x [N, 33, 18] -> (gt, zy, id1, id2) logits (id* None unless
         all_heads). Inference only (no gradient: the serving kernels have
         no backward); training runs forward_train."""
+        names = HEADS if all_heads else HEADS[:2]
+        kernel_path = x.is_cuda or compute_dtype == torch.bfloat16
+        if kernel_path and os.environ.get("NSP_FUSE_HEAD", "0") == "1":
+            logits = bilstm_encoder_fused(self.encoder.layers, x,
+                                          center_only=True,
+                                          head=self.fused_head(names))
+            sizes = [self.heads[k].w.shape[1] for k in names]
+            outs = logits[:, :sum(sizes)].split(sizes, dim=1)
+            return tuple(outs) + (None,) * (4 - len(outs))
         ctr = encoder_center(self.encoder.layers, x, compute_dtype)
         feat = self.proj(ctr, compute_dtype)                       # [N, 128]
         feat = torch.tanh(self.dense(feat, compute_dtype))         # [N, 256]
-        names = HEADS if all_heads else HEADS[:2]
         outs = [self.heads[k](feat, compute_dtype) for k in names]
         return tuple(outs) + (None,) * (4 - len(outs))
+
+    def fused_head(self, names):
+        """proj, dense and the named heads as the in-kernel head: bf16
+        weights in [out, in] layout, the heads stacked into one matrix with
+        its rows zero-padded to a multiple of 8, as the JAX package pads
+        them."""
+        wh = torch.cat([self.heads[k].w.T for k in names])
+        bh = torch.cat([self.heads[k].b for k in names])
+        pad = -wh.shape[0] % 8
+        wh = nn.functional.pad(wh, (0, 0, 0, pad))
+        bh = nn.functional.pad(bh, (0, pad))
+        return (self.proj.w.T.bfloat16().contiguous(), self.proj.b.float(),
+                self.dense.w.T.bfloat16().contiguous(), self.dense.b.float(),
+                wh.bfloat16().contiguous(), bh.float().contiguous())
 
     def forward_train(self, x: torch.Tensor, *, use_kernels: bool,
                       generator: Optional[torch.Generator] = None):

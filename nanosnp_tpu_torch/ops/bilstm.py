@@ -9,7 +9,10 @@ plain PyTorch version beside it:
                  `_enc_stream_kfused_kernel` (pallas_lstm.py:733), which
                  compute the same function.
   bilstm_center  only h at t = L//2 of both directions, [N, 2H] f32.
-                 Replaces `_enc_center_kernel` (pallas_lstm.py:501).
+                 Replaces `_enc_center_kernel` (pallas_lstm.py:501) and
+                 `_enc_center_kfused_kernel` (pallas_lstm.py:770), which
+                 compute the same function (the K-fusion only filled the
+                 TPU's 128-deep matrix tile).
 
 Shared contract (the Pallas kernels' cast sites): x [N, L, D] bf16,
 w_ih [2, D, 4H] bf16, w_hh [2, H, 4H] bf16, b [2, 4H] f32 (b_ih + b_hh);
@@ -29,10 +32,13 @@ from typing import Dict
 
 import torch
 
-# every CUDA kernel of the port (lstm_train.py's three counted here too)
+# every CUDA kernel of the port (those of lstm_train.py and
+# bilstm_fused.py counted here too)
 LAUNCHES: Dict[str, int] = {"bilstm_stream": 0, "bilstm_center": 0,
                             "lstm_recurrence_train": 0,
-                            "lstm_recurrence_bwd": 0, "lstm_dw_reduce": 0}
+                            "lstm_recurrence_bwd": 0, "lstm_dw_reduce": 0,
+                            "lstm_recurrence_infer": 0,
+                            "bilstm_center_head": 0, "bilstm2_center": 0}
 
 
 def reset_launch_counts() -> None:

@@ -31,7 +31,17 @@ SOURCES: Dict[str, Dict[str, List]] = {
         # x, packed weights, b, out, n, seq_len, d_in, hidden, stream
         "nsp_bilstm_center": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
+    "bilstm_fused": {
+        # x, packed weights, b, packed wp, bp, packed wd, bd, packed wh, bh,
+        # out, n, seq_len, d_in, hidden, p, q, r (padded), n_out, stream
+        "nsp_bilstm_center_head": [_P] * 10 + [_I] * 8 + [_P],
+        # x, packed l1 weights, b1, packed l2 weights, b2, out, n, seq_len,
+        # d_in, hidden, stream
+        "nsp_bilstm2_center": [_P] * 6 + [_I] * 4 + [_P],
+    },
     "lstm_train": {
+        # xp, xp_bf16, packed w_hh^T, hs, n, seq_len, hidden, stream
+        "nsp_lstm_infer": [_P, _I, _P, _P, _I, _I, _I, _P],
         # xp, packed w_hh^T, hs, cs, n, seq_len, hidden, stream
         "nsp_lstm_fwd": [_P, _P, _P, _P, _I, _I, _I, _P],
         # xp, packed w_hh^T, packed w_hh, hs, cs, g, dxp, n, seq_len,

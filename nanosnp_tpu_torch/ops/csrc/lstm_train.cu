@@ -1,8 +1,12 @@
-// LSTM recurrence for training, forward and backward, both directions, for
-// Hopper (sm_90a). Plain C interface, loaded with ctypes.
+// LSTM recurrence over precomputed input projections, both directions, for
+// Hopper (sm_90a): the inference forward, and training's forward and
+// backward. Plain C interface, loaded with ctypes.
 //
 // Replaces the Pallas TPU kernels of nanosnp_tpu/ops/pallas_lstm.py behind
-// the custom VJP `_recurrence` (the differentiable recurrence of training):
+// the custom VJP `_recurrence` (its primal, and the differentiable
+// recurrence of training):
+//   nsp_lstm_infer <- _kernel       (no gradient wanted: streams h_t only,
+//                                    xp f32 or bf16)
 //   nsp_lstm_fwd  <- _train_kernel  (forward; streams h_t and c_t)
 //   nsp_lstm_bwd  <- _bwd_kernel    (reverse-time sweep: gates recomputed,
 //                                    dxp streamed, dh/dc carried)
@@ -15,6 +19,7 @@
 //   xp, dxp [n, L, 2, 4H] f32   input projections x W_ih + b / their grads
 //   hs, cs  [n, L, 2, H]  f32   h_t and c_t, direction d at [..., d, :]
 //   g       [n, L, 2, H]  f32   gradient of the loss with respect to hs
+// (the inference kernel also takes xp in bf16 and widens it on load)
 //   dW      [2, H, 4H]    bf16  gradient of w_hh (x @ w layout)
 // Gate order i, f, g, o. h and c start at zero.
 //
@@ -29,7 +34,8 @@
 // (the backward adds a [H, 4H] x [4H, BN] one) that depends on the step
 // before, L steps in a row. The f32 streams (xp in, hs and cs out; in the
 // backward xp, hs, cs, g in and dxp out) are the least traffic, and at the
-// training batch sizes they, not the operations, give the bound. The
+// training batch sizes they, not the operations, give the bound; so too
+// for the inference kernel, which moves xp in and hs out and nothing else. The
 // weights (w_hh^T: 512 KiB a direction at H=256) do not fit one SM's
 // shared memory, so every step re-reads them from L2, as bilstm.cu does;
 // at H=64 (32 KiB) they stay in L1. Design:
@@ -84,11 +90,17 @@ __device__ __forceinline__ int frag_row(int nt, int tig, int e) {
   return nt * 8 + 2 * tig + (e & 1);
 }
 
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
 // gates[g][nt][e] = xp[row, t, dir, g*H + j] (zero past n), then
 // += w_hh^T . bf16(h_{t-1}) from shared memory.
-template <int kNT>
+
+template <int kNT, typename XpT>
 __device__ __forceinline__ void gate_preacts(
-    float (&acc)[4][kNT][4], const float* __restrict__ xp,
+    float (&acc)[4][kNT][4], const XpT* __restrict__ xp,
     const uint4* const (&wg)[4], const __nv_bfloat16* s_h, int ld, int n,
     int n0, int seq_len, int t, int dir, int hidden, int j_lo, int grp,
     int tig) {
@@ -99,11 +111,11 @@ __device__ __forceinline__ void gate_preacts(
     for (int e = 0; e < 4; ++e) {
       const int row = n0 + frag_row(nt, tig, e);
       const int j = e < 2 ? j_lo : j_lo + 8;
-      const float* p =
+      const XpT* p =
           xp + (((size_t)row * seq_len + t) * 2 + dir) * 4 * hidden + j;
 #pragma unroll
       for (int g = 0; g < 4; ++g)
-        acc[g][nt][e] = row < n ? p[g * hidden] : 0.0f;
+        acc[g][nt][e] = row < n ? widen(p[g * hidden]) : 0.0f;
     }
   for (int kt = 0; kt < k_tiles; ++kt) {
     uint4 a[4];
@@ -120,10 +132,14 @@ __device__ __forceinline__ void gate_preacts(
   }
 }
 
-// xp [n, L, 2, 4H] f32; wpk [2, 4H/16, H/16, 32, 8] bf16 (w_hh^T fragments)
+// The forward recurrence. kTrain streams c_t beside h_t (the backward
+// sweep reads it); inference (kTrain false) streams h_t only and takes xp
+// in f32 or bf16.
+// xp [n, L, 2, 4H]; wpk [2, 4H/16, H/16, 32, 8] bf16 (w_hh^T fragments)
 // hs, cs [n, L, 2, H] f32. block = H/16 warps, grid = (ceil(n/BN), 2).
+template <bool kTrain, typename XpT>
 __global__ void __launch_bounds__(kMaxWarps * 32)
-lstm_fwd_kernel(const float* __restrict__ xp, const uint4* __restrict__ wpk,
+lstm_fwd_kernel(const XpT* __restrict__ xp, const uint4* __restrict__ wpk,
                 float* __restrict__ hs, float* __restrict__ cs, int n,
                 int seq_len, int hidden) {
   constexpr int kNT = kFwdNT;
@@ -181,7 +197,7 @@ lstm_fwd_kernel(const float* __restrict__ xp, const uint4* __restrict__ wpk,
         if (row < n) {
           const size_t o = (((size_t)row * seq_len + t) * 2 + dir) * hidden + j;
           hs[o] = h;
-          cs[o] = c[nt][e];
+          if (kTrain) cs[o] = c[nt][e];
         }
       }
     __syncthreads();  // h_t is in shared memory before the next product
@@ -408,25 +424,41 @@ bool bad_shape(int n, int seq_len, int hidden) {
          hidden > 16 * kMaxWarps;
 }
 
+template <bool kTrain, typename XpT>
+int launch_fwd(const void* xp, const void* wpk, void* hs, void* cs, int n,
+               int seq_len, int hidden, void* stream) {
+  if (bad_shape(n, seq_len, hidden)) return (int)cudaErrorInvalidValue;
+  constexpr int kBN = 8 * kFwdNT;
+  const size_t smem =
+      (size_t)kBN * (hidden + kRowPad) * sizeof(__nv_bfloat16);
+  auto kernel = lstm_fwd_kernel<kTrain, XpT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((n + kBN - 1) / kBN, 2);
+  kernel<<<grid, hidden / 16 * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const XpT*>(xp), static_cast<const uint4*>(wpk),
+      static_cast<float*>(hs), static_cast<float*>(cs), n, seq_len, hidden);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int nsp_lstm_fwd(const void* xp, const void* wpk, void* hs,
                             void* cs, int n, int seq_len, int hidden,
                             void* stream) {
-  if (bad_shape(n, seq_len, hidden)) return (int)cudaErrorInvalidValue;
-  constexpr int kBN = 8 * kFwdNT;
-  const size_t smem =
-      (size_t)kBN * (hidden + kRowPad) * sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((n + kBN - 1) / kBN, 2);
-  lstm_fwd_kernel<<<grid, hidden / 16 * 32, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xp), static_cast<const uint4*>(wpk),
-      static_cast<float*>(hs), static_cast<float*>(cs), n, seq_len, hidden);
-  return (int)cudaGetLastError();
+  return launch_fwd<true, float>(xp, wpk, hs, cs, n, seq_len, hidden, stream);
+}
+
+// xp f32 (xp_bf16 = 0) or bf16; hs [n, L, 2, H] f32; no cell-state stream
+extern "C" int nsp_lstm_infer(const void* xp, int xp_bf16, const void* wpk,
+                              void* hs, int n, int seq_len, int hidden,
+                              void* stream) {
+  if (xp_bf16)
+    return launch_fwd<false, __nv_bfloat16>(xp, wpk, hs, nullptr, n, seq_len,
+                                            hidden, stream);
+  return launch_fwd<false, float>(xp, wpk, hs, nullptr, n, seq_len, hidden,
+                                  stream);
 }
 
 extern "C" int nsp_lstm_bwd(const void* xp, const void* wpk_t,

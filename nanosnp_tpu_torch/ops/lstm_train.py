@@ -1,11 +1,15 @@
-"""The differentiable LSTM recurrence of training: forward and backward
-kernels, both directions.
+"""The LSTM recurrence over precomputed input projections: the inference
+forward, and training's forward and backward kernels, both directions.
 
 Counterpart of the JAX package's custom-VJP `_recurrence`
-(nanosnp_tpu/ops/pallas_lstm.py:389-420), which training reaches through
-`bilstm_layer_pallas`. Three wrappers around the CUDA kernels of
+(nanosnp_tpu/ops/pallas_lstm.py:389-420), which `bilstm_layer_pallas`
+reaches with or without differentiation, and of the `fused=False` branch
+of `bilstm_encoder_pallas`. Four wrappers around the CUDA kernels of
 `csrc/lstm_train.cu`, each with its plain PyTorch version beside it:
 
+  lstm_recurrence_infer  (xp f32 or bf16, w_hh) -> hs, no cell-state
+                         stream. Replaces `_kernel` (pallas_lstm.py:64),
+                         the primal of `_recurrence`.
   lstm_recurrence_train  (xp, w_hh) -> (hs, cs). Replaces `_train_kernel`
                          (pallas_lstm.py:178).
   lstm_recurrence_bwd    (xp, w_hh, hs, cs, g) -> (dxp, dW_hh): the
@@ -15,7 +19,8 @@ Counterpart of the JAX package's custom-VJP `_recurrence`
                          `_bwd_kernel` runs in its body (per batch tile, in
                          VMEM) and its wrapper sums over tiles.
 
-`lstm_recurrence(xp, w_hh)` is the autograd op over them.
+`lstm_recurrence(xp, w_hh)` takes the inference kernel when no gradient is
+wanted and the autograd op over the training kernels otherwise.
 
 Layout, in true time order (direction 1 walks time backwards inside the
 kernels): xp and dxp [N, L, 2, 4H] f32 (x @ w_ih + b of both directions,
@@ -107,6 +112,14 @@ def lstm_recurrence_train_plain(xp, w_hh):
     return torch.stack(hs, dim=2), torch.stack(cs, dim=2)
 
 
+def lstm_recurrence_infer_plain(xp, w_hh):
+    """Step loop of `_kernel`: bf16 xp is widened on load, no cell-state
+    stream. -> hs [N, L, 2, H] (f32 for f32 or bf16 xp)."""
+    if xp.dtype == torch.bfloat16:
+        xp = xp.float()
+    return lstm_recurrence_train_plain(xp, w_hh)[0]
+
+
 def lstm_recurrence_bwd_plain(xp, w_hh, hs, cs, g, with_dw: bool = True):
     """Step loop of `_bwd_kernel`, line by line, dW included (summed in
     xp's dtype, then cast to w_hh's dtype as `_recurrence_bwd` does).
@@ -168,6 +181,33 @@ def _raise_on(err, name, n, seq_len, hidden):
     if err:
         raise RuntimeError(f"{name} launch failed: cudaError {err} "
                            f"(N={n}, L={seq_len}, H={hidden})")
+
+
+def lstm_recurrence_infer(xp, w_hh):
+    """xp [N, L, 2, 4H] f32 or bf16, w_hh [2, H, 4H] -> hs [N, L, 2, H]
+    f32. No gradient flows through it."""
+    _check(xp, w_hh)
+    if xp.device.type == "cpu":
+        with torch.no_grad():
+            return lstm_recurrence_infer_plain(xp, w_hh)
+    from .build import library
+
+    n, seq_len, _, four_h = xp.shape
+    hidden = four_h // 4
+    xp_bf16 = xp.dtype == torch.bfloat16
+    _check_kernel_inputs(hidden, () if xp_bf16 else (xp,),
+                         (xp, w_hh) if xp_bf16 else (w_hh,))
+    hs = torch.empty(n, seq_len, 2, hidden, dtype=torch.float32,
+                     device=xp.device)
+    if n and seq_len:
+        wpk = pack_a_fragments(w_hh.detach().transpose(1, 2))
+        with torch.cuda.device(xp.device):
+            err = library("lstm_train").nsp_lstm_infer(
+                xp.data_ptr(), int(xp_bf16), wpk.data_ptr(), hs.data_ptr(),
+                n, seq_len, hidden, _stream(xp))
+        _raise_on(err, "lstm_recurrence_infer", n, seq_len, hidden)
+        LAUNCHES["lstm_recurrence_infer"] += 1
+    return hs
 
 
 def lstm_recurrence_train(xp, w_hh):
@@ -280,13 +320,26 @@ class _Recurrence(torch.autograd.Function):
 
 
 def lstm_recurrence(xp, w_hh):
-    """Differentiable recurrence: xp [N, L, 2, 4H], w_hh [2, H, 4H] (its
-    dtype the compute dtype) -> hs [N, L, 2, H]."""
+    """The recurrence: xp [N, L, 2, 4H], w_hh [2, H, 4H] (its dtype the
+    compute dtype) -> hs [N, L, 2, H]. Where no gradient is wanted
+    (gradients off, or neither input requires one) it is the inference
+    kernel, as the primal of the JAX package's `_recurrence`; otherwise
+    the autograd op over the training kernels."""
+    if not torch.is_grad_enabled() or not (xp.requires_grad
+                                           or w_hh.requires_grad):
+        return lstm_recurrence_infer(xp, w_hh)
     return _Recurrence.apply(xp, w_hh)
 
 
 # (FLOP, bytes) each call must do and move: each input read once, each
 # output written once. Products in bf16 on the tensor cores except dW (f32).
+def infer_cost(n: int, seq_len: int, hidden: int, xp_bytes: int = 4):
+    flop = 2 * (2 * n * seq_len) * 4 * hidden * hidden
+    return flop, (n * seq_len * 2 * 4 * hidden * xp_bytes
+                  + 2 * hidden * 4 * hidden * 2
+                  + n * seq_len * 2 * hidden * 4)
+
+
 def train_cost(n: int, seq_len: int, hidden: int):
     flop = 2 * (2 * n * seq_len) * 4 * hidden * hidden
     state = n * seq_len * 2 * hidden * 4

@@ -92,3 +92,36 @@ def test_trainers_ask_for_the_card_and_raise_before_writing(tmp_path):
         cli.main(["train-pileup", "--data", str(tmp_path), "-o",
                   str(tmp_path / "cli")])
     assert not (tmp_path / "cli").exists()
+
+
+def test_legacy_package_is_under_the_scan():
+    names = {str(p.relative_to(PKG)) for p in _modules()}
+    assert {"legacy/catmodel.py", "legacy/train.py", "legacy/bins.py",
+            "legacy/edges.py", "legacy/heuristic.py", "legacy/labelcheck.py",
+            "legacy/config_archive.py", "ops/bilstm_fused.py"} <= names
+
+
+@pytest.mark.parametrize("cmd", ["legacy-predict", "legacy-eval",
+                                 "legacy-train"])
+def test_legacy_clis_ask_for_the_card_and_raise_before_writing(tmp_path, cmd):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    from nanosnp_tpu_torch.runtime import cli
+
+    args = ["--data-tag1", str(tmp_path), "--data-tag2", str(tmp_path)]
+    if cmd != "legacy-predict":
+        args += ["--ref", "r.fa", "--truth-vcf", "t.vcf", "--bed", "c.bed"]
+    if cmd != "legacy-train":
+        args += ["--model", "cat.npz"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main([cmd, *args, "-o", str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
+
+
+def test_legacy_trainer_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    from nanosnp_tpu_torch.legacy.train import train_catmodel
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_catmodel({}, iter([]))

@@ -1,0 +1,166 @@
+"""The port's inference recurrence (`lstm_recurrence_infer`) against the
+JAX package's `_kernel`, and the dispatch of `lstm_recurrence`.
+
+On the CPU the wrapper runs its plain PyTorch version, which keeps the
+CUDA kernel's cast sites. It is held against `bilstm_layer_pallas`
+(interpret mode, no differentiation: the primal `_kernel` with f32 xp) and
+against `bilstm_encoder_pallas(fused=False)` (xp rounded to bf16 before
+the kernel). The CUDA kernel is held against the same plain version on the
+card by chip_smoke.py.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from nanosnp_tpu.ops.pallas_lstm import (bilstm_encoder_pallas,
+                                         bilstm_layer_pallas)
+from nanosnp_tpu_torch.models.bilstm import BiLSTM, bilstm_encoder_unfused
+from nanosnp_tpu_torch.models.convert import params_from_jax
+from nanosnp_tpu_torch.ops import lstm_train as T
+from nanosnp_tpu_torch.ops.bilstm import LAUNCHES, reset_launch_counts
+
+# bf16 cast sites on both sides (w_hh and h_{t-1} rounded to bf16, f32
+# accumulation, f32 cell): what remains is f32 summation order, which can
+# flip the bf16 rounding of an h_{t-1} (2^-8 relative) and carry a few 1e-4
+# into later steps; typical gaps are ~1e-7.
+BF16_TOL = 1e-3
+# the fused=False encoder rounds xp and the activations between layers to
+# bf16 too, so a flipped rounding can carry about 1e-3 into the next layer
+ENC_TOL = 2e-3
+
+
+def _to_jax_layout(a):
+    """[N, L, 2, F] true time -> [L, 2, N, F], direction 1 pre-reversed."""
+    a = np.transpose(a, (1, 2, 0, 3))
+    return np.stack([a[:, 0], a[::-1, 1]], axis=1)
+
+
+def _from_jax_layout(a):
+    a = np.stack([a[:, 0], a[::-1, 1]], axis=1)
+    return np.ascontiguousarray(np.transpose(a, (2, 0, 1, 3)))
+
+
+def _inputs(seed, n, seq_len, hidden):
+    rng = np.random.default_rng(seed)
+    k = 1.0 / np.sqrt(hidden)
+    xp = rng.standard_normal((n, seq_len, 2, 4 * hidden)).astype(np.float32)
+    w_hh = rng.uniform(-k, k, (2, hidden, 4 * hidden)).astype(np.float32)
+    return xp, w_hh
+
+
+# N ragged against the Pallas tile (8) and the CUDA kernel's (32)
+@pytest.mark.parametrize("n,seq_len,hidden", [(5, 9, 16), (13, 11, 32)])
+def test_infer_f32_xp_matches_pallas_primal(n, seq_len, hidden):
+    xp, w_hh = _inputs(n + seq_len, n, seq_len, hidden)
+    want = _from_jax_layout(np.asarray(bilstm_layer_pallas(
+        jnp.asarray(_to_jax_layout(xp)), jnp.asarray(w_hh), block_n=8,
+        interpret=True)))
+    got = T.lstm_recurrence_infer(torch.from_numpy(xp),
+                                  torch.from_numpy(w_hh).bfloat16())
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=BF16_TOL, rtol=0)
+    assert np.median(np.abs(got.numpy() - want)) < 1e-5
+
+
+def _layers(rng, d_in, hidden, n_layers):
+    k = 1.0 / np.sqrt(hidden)
+    return [{"w_ih": rng.uniform(-k, k, (2, d_in if i == 0 else 2 * hidden,
+                                         4 * hidden)).astype(np.float32),
+             "w_hh": rng.uniform(-k, k, (2, hidden, 4 * hidden)).astype(
+                 np.float32),
+             "b": rng.uniform(-2 * k, 2 * k, (2, 4 * hidden)).astype(
+                 np.float32)} for i in range(n_layers)]
+
+
+@pytest.mark.parametrize("n,d_in,hidden,n_layers,center_only",
+                         [(13, 18, 16, 2, True), (6, 10, 32, 1, False)])
+def test_unfused_encoder_matches_pallas_fused_false(n, d_in, hidden, n_layers,
+                                                    center_only):
+    """bf16 xp: the in-projection outside the kernel, rounded to bf16."""
+    rng = np.random.default_rng(n * d_in)
+    layers = _layers(rng, d_in, hidden, n_layers)
+    x = np.array(jnp.asarray(rng.standard_normal((n, 11, d_in)),
+                             jnp.bfloat16).astype(jnp.float32))
+    want = np.asarray(bilstm_encoder_pallas(
+        [jax.tree.map(jnp.asarray, p) for p in layers], jnp.asarray(x),
+        block_n=8, interpret=True, center_only=center_only, fused=False))
+    got = bilstm_encoder_unfused(BiLSTM(params_from_jax(layers)).layers,
+                                 torch.from_numpy(x), center_only=center_only)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=ENC_TOL, rtol=0)
+    assert np.median(np.abs(got.numpy() - want)) < 1e-4
+
+
+def test_infer_bf16_xp_is_the_widened_f32_run():
+    xp, w_hh = _inputs(3, 7, 9, 16)
+    xp_bf = torch.from_numpy(xp).bfloat16()
+    w = torch.from_numpy(w_hh).bfloat16()
+    got = T.lstm_recurrence_infer(xp_bf, w)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, T.lstm_recurrence_infer(xp_bf.float(), w),
+                               atol=0, rtol=0)
+    # and it equals the training forward's hs on the same inputs
+    torch.testing.assert_close(
+        got, T.lstm_recurrence_train(xp_bf.float(), w)[0], atol=0, rtol=0)
+
+
+def _spy(monkeypatch):
+    calls = []
+    for name in ("lstm_recurrence_infer", "lstm_recurrence_train"):
+        real = getattr(T, name)
+
+        def wrapped(*a, _real=real, _name=name, **k):
+            calls.append(_name)
+            return _real(*a, **k)
+
+        monkeypatch.setattr(T, name, wrapped)
+    return calls
+
+
+def test_recurrence_dispatch_follows_gradients(monkeypatch):
+    """No gradient wanted -> the inference kernel's wrapper; otherwise the
+    autograd op over the training kernels."""
+    calls = _spy(monkeypatch)
+    xp, w_hh = _inputs(4, 5, 7, 16)
+    xp_t = torch.tensor(xp, requires_grad=True)
+    w_t = torch.tensor(w_hh).bfloat16()
+
+    with torch.no_grad():
+        a = T.lstm_recurrence(xp_t, w_t)
+    assert calls == ["lstm_recurrence_infer"] and not a.requires_grad
+    calls.clear()
+    b = T.lstm_recurrence(xp_t.detach(), w_t)       # nothing requires grad
+    assert calls == ["lstm_recurrence_infer"] and not b.requires_grad
+    calls.clear()
+    c = T.lstm_recurrence(xp_t, w_t)
+    assert calls == ["lstm_recurrence_train"] and c.requires_grad
+    torch.testing.assert_close(a, c.detach(), atol=0, rtol=0)
+    calls.clear()
+    T.lstm_recurrence(xp_t.detach(), w_t.float().requires_grad_())
+    assert calls == ["lstm_recurrence_train"]
+
+
+def test_infer_rejects_bad_inputs_and_counts_no_plain_calls():
+    reset_launch_counts()
+    xp, w_hh = _inputs(5, 4, 5, 16)
+    T.lstm_recurrence_infer(torch.from_numpy(xp),
+                            torch.from_numpy(w_hh).bfloat16())
+    assert LAUNCHES["lstm_recurrence_infer"] == 0
+    with pytest.raises(ValueError):
+        T.lstm_recurrence_infer(torch.from_numpy(xp[:, :, :1]),
+                                torch.from_numpy(w_hh).bfloat16())
+    with pytest.raises(ValueError):
+        T.lstm_recurrence_infer(torch.from_numpy(xp).to("meta"),
+                                torch.from_numpy(w_hh).to("meta"))
+
+
+def test_infer_cost_counts_no_cell_state_stream():
+    flop, nbytes = T.infer_cost(8192, 11, 256)
+    flop_t, bytes_t = T.train_cost(8192, 11, 256)
+    assert flop == flop_t == 2 * 2 * 8192 * 11 * 1024 * 256
+    assert bytes_t - nbytes == 8192 * 11 * 2 * 256 * 4      # cs
+    assert nbytes - T.infer_cost(8192, 11, 256, xp_bytes=2)[1] \
+        == 8192 * 11 * 2 * 1024 * 2
