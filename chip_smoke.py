@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
   setup    prints the card (nvidia-smi name and power limit), torch, CUDA
-           and nvcc versions; builds the CUDA kernels from ops/csrc.
+           and nvcc versions; builds the CUDA kernels from ops/csrc
+           (nvcc) and the host BAM/mpileup engine from io/native (g++).
   phase 1  holds each kernel against its plain PyTorch version at every
            shape the main path gives it (N not a multiple of the batch
            tile), then times kernel, plain version and cuDNN nn.LSTM
@@ -20,6 +21,11 @@
            torch.matmul for the head; yardsticks only), and shows by the
            launch counts that `lstm_recurrence` takes the inference kernel
            without gradients and the training kernels with them.
+  phase 1d the knock-out probe of the pileup model's first layer
+           (ops/probe.py): each of its four modes against `probe_plain` at
+           N=8192, `full` also against `bilstm_stream`; then the probe's
+           entry point (`python -m nanosnp_tpu_torch.ops.probe`), and the
+           four times and three shares on a line of their own.
   phase 2  drives the serving slice through its entry points at full
            model width:
            s2-predict (CLI) on a 100k-candidate columnar shard with seeded
@@ -46,6 +52,19 @@
            one full-width pileup step's gradients on the card are held
            against the plain versions on the CPU, and steady-state steps of
            both trainers are timed and profiled (torch.profiler).
+  phase 4  `call` end to end from a BAM at full model width. Writes a
+           diploid world (a training and a calling contig, 30x reads in one
+           untagged BAM, truth VCF, BED); then, all through the CLI on the
+           card: make-train-data on the training contig, train-pileup for
+           a few epochs, that model written as a reference-layout .chkpt,
+           `call --phaser native` on the calling contig with the shipped
+           haplotype weights (s1 BAM pileup, s2, s3 native phaser, s4 read
+           matrices, s5, s6). Every stage must write its marker, s3 phase
+           sites, s5 see sites, `bilstm_stream` and `bilstm_center` be
+           launched, merge.vcf have rows, and a second `call` on the same
+           output run no stage. Prints per-stage seconds and rates, het-SNP
+           recall and precision against the world's truth, and the card's
+           busy share of one more `call` under torch.profiler.
 
 Prints a `{"kernels": [...]}` line, then as the last line
 `{"ok": true, "device": {...}}`. Exits non-zero on any failure, when no
@@ -96,6 +115,24 @@ PROFILE_STEPS = 5       # training steps timed, and profiled, per model
 # both sides round h_{t-1}, dgates and dW to bf16, so a reordered f32 sum
 # can flip a rounding (2^-8 relative) and carry it through the layers
 GRAD_TOL = 2e-2
+PROBE_TOL = 4e-3        # bf16 output: one bf16 ulp below 1 (2^-8). Kernel and
+                        # plain version sum in another order, which can flip
+                        # the rounding of an h; 2e-3 holds only where |h| < 0.5
+PROBE_ITERS = 50        # launches a mode in the probe's timing loop
+# the `call` world: an untagged BAM of all-match reads over two contigs
+CALL_TRAIN_LEN = 300_000    # training contig, bp
+CALL_LEN = 2_000_000        # calling contig: about 12 batches of 8192
+                            # candidates in s2, a few thousand s5 sites
+CALL_MIN_CANDIDATES = 2 * 8192   # s2 must see two full batches
+CALL_COVERAGE = 30
+CALL_READ_LEN = 2000
+CALL_READ_ERR = 0.12        # substitutions a base: errors alone make most
+                            # of the candidates, as in low-coverage ONT
+CALL_TRAIN_EPOCHS = 4
+CALL_TRAIN_BATCH = 500
+CALL_TRAIN_LR = 3e-3
+CALL_STAGES = ("s1_pileup_features", "s2_pileup_predict", "s3_phasing",
+               "s4_haplotype_features", "s5_haplotype_predict", "s6_merge")
 
 
 def log(*a):
@@ -147,6 +184,7 @@ REPLACES = {
                           "(_enc_center_head_kernel)",
     "bilstm2_center": "nanosnp_tpu/ops/pallas_lstm.py:842 "
                       "(_enc2_center_kernel)",
+    "bilstm_probe": "scripts/kernel_probe.py:36 (_variant_kernel)",
 }
 SOURCES = {"bilstm_stream": "bilstm.cu", "bilstm_center": "bilstm.cu",
            "lstm_recurrence_train": "lstm_train.cu",
@@ -154,7 +192,8 @@ SOURCES = {"bilstm_stream": "bilstm.cu", "bilstm_center": "bilstm.cu",
            "lstm_dw_reduce": "lstm_train.cu",
            "lstm_recurrence_infer": "lstm_train.cu",
            "bilstm_center_head": "bilstm_fused.cu",
-           "bilstm2_center": "bilstm_fused.cu"}
+           "bilstm2_center": "bilstm_fused.cu",
+           "bilstm_probe": "bilstm_probe.cu"}
 # (label, N.., L, D of the cuDNN yardstick's first layer, H): the inference
 # recurrence's calls: five a CatModel batch, and the fused=False encoder
 INFER_SHAPES = [
@@ -1112,10 +1151,11 @@ def _haplotype_train_world(rng, work):
     return shard_dir
 
 
-def _train_records(run_dir):
+def _train_records(run_dir, epochs=2):
+    """The scalars of a training run: a train and a val record an epoch."""
     with open(os.path.join(run_dir, "scalars.jsonl")) as f:
         recs = [json.loads(line) for line in f]
-    if len(recs) != 4 or not all(math.isfinite(r["loss"]) for r in recs):
+    if len(recs) != 2 * epochs or not all(math.isfinite(r["loss"]) for r in recs):
         raise AssertionError(f"{run_dir}: bad scalars {recs}")
     for name in ("best.ckpt", "last.ckpt"):
         if not os.path.exists(os.path.join(run_dir, name)):
@@ -1233,6 +1273,334 @@ def phase_train(dev):
         raise AssertionError(f"card gradients disagree: {worst}")
     profile = profile_train_steps(dev, arrays, rng)
     log(json.dumps({"train_profile": profile}))
+    shutil.rmtree(WORK, ignore_errors=True)
+    return launches, rows
+
+
+def phase_probe(dev):
+    """Phase 1d: the four modes of the probe kernel against `probe_plain`,
+    their times and shares, and the probe's entry point."""
+    import torch
+
+    from nanosnp_tpu_torch.ops import bilstm as K
+    from nanosnp_tpu_torch.ops import probe as P
+
+    seq_len, d_in, hidden = 33, 18, 64
+    x, w_ih, w_hh, b = P.probe_inputs(N_TIME, dev, seq_len, d_in, hidden,
+                                      seed=SEED)
+    errs = {}
+    for mode in P.MODES:
+        got = P.bilstm_probe(x, w_ih, w_hh, b, mode)
+        torch.cuda.synchronize()
+        errs[mode] = _errs(got, P.probe_plain(x, w_ih, w_hh, b, mode))[0]
+        log(f"[check] bilstm_probe   {mode:7s} N={N_TIME} L={seq_len} "
+            f"D={d_in} H={hidden}: max|d|={errs[mode]:.3e} (tol {PROBE_TOL})")
+        if not errs[mode] <= PROBE_TOL:
+            raise AssertionError(f"bilstm_probe {mode}: max|d| {errs[mode]} "
+                                 f"> {PROBE_TOL}")
+    same = (P.bilstm_probe(x, w_ih, w_hh, b, "full").float()
+            - K.bilstm_stream(x, w_ih, w_hh, b,
+                              torch.bfloat16).float()).abs().max().item()
+    log(f"[check] bilstm_probe   full against bilstm_stream: max|d|={same}")
+    if same != 0.0:
+        raise AssertionError("probe mode full is not bilstm_stream")
+
+    # the kernel alone: weights packed once, CUDA events around the launches
+    ms = P.time_modes(x, w_ih, w_hh, b, PROBE_ITERS)
+    plain_ms = {m: cuda_time(lambda: P.probe_plain(x, w_ih, w_hh, b, m), 2)
+                for m in P.MODES}
+    lstm = torch.nn.LSTM(d_in, hidden, batch_first=True, bidirectional=True,
+                         device=dev, dtype=torch.bfloat16)
+    with torch.inference_mode():
+        library_ms = cuda_time(lambda: lstm(x), 5)
+    flop, nbytes = K.layer_cost(N_TIME, seq_len, d_in, hidden, center=False)
+    x_bytes = N_TIME * seq_len * d_in * 2
+    # what a mode leaves out of the work: nomm the W_hh products, nodma all
+    # of x but the one slab a direction stages
+    cost = {"full": (flop, nbytes), "nogate": (flop, nbytes),
+            "nomm": (flop * d_in // (d_in + hidden), nbytes),
+            "nodma": (flop, nbytes - x_bytes + 2 * N_TIME * d_in * 2)}
+    rows = []
+    for mode in P.MODES:
+        t_ops = cost[mode][0] / PEAK_BF16_FLOPS * 1e3
+        t_bytes = cost[mode][1] / PEAK_BYTES * 1e3
+        rows.append(dict(
+            name="bilstm_probe", shape=mode, L=seq_len, D=d_in, H=hidden,
+            max_abs_err=errs[mode], ms=ms[mode], plain_ms=plain_ms[mode],
+            # cuDNN computes the full layer only
+            library_ms=library_ms if mode == "full" else None,
+            bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes"))
+        log(f"[time]  bilstm_probe   {mode:7s} N={N_TIME}: kernel "
+            f"{ms[mode]:.4f} ms, plain {plain_ms[mode]:.3f} ms, bound "
+            f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']})")
+    log(json.dumps({"probe": {"N": N_TIME, "iters": PROBE_ITERS, "ms": ms,
+                              "shares": P.shares(ms)}}))
+
+    # the entry point a user calls; its launches are the path's count
+    K.reset_launch_counts()
+    if P.main([str(N_TIME), str(PROBE_ITERS)]) != 0:
+        raise AssertionError("the probe's entry point failed")
+    torch.cuda.synchronize()
+    return rows, {"probe": dict(K.LAUNCHES)}
+
+
+def _call_world(rng, work):
+    """A diploid world for `call`: a training and a calling contig with
+    phased het and hom SNVs, reads of both haplotypes as one untagged,
+    position-sorted BAM of all-match records (built as one numpy array: the
+    records have one size), truth VCF and confident-region BED.
+    -> (paths, {contig: [DiploidTruth]})."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from bamgen import BGZF_EOF, bgzf_block
+    from diploid import make_diploid, truth_vcf_lines
+
+    from nanosnp_tpu_torch.io.fasta import write_fasta
+
+    t0 = time.monotonic()
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    contigs = {"chrT": CALL_TRAIN_LEN, "chrC": CALL_LEN}
+    genome, truth, records = {}, {}, []
+    name_w = 9                      # "r" + 8 digits, then the NUL
+    head = np.dtype([
+        ("block_size", "<i4"), ("ref_id", "<i4"), ("pos", "<i4"),
+        ("l_name", "u1"), ("mapq", "u1"), ("bin", "<u2"), ("n_cigar", "<u2"),
+        ("flag", "<u2"), ("l_seq", "<i4"), ("next_ref", "<i4"),
+        ("next_pos", "<i4"), ("tlen", "<i4"), ("name", f"S{name_w + 1}"),
+        ("cigar", "<u4")])
+    rl = CALL_READ_LEN
+    rec_len = head.itemsize + rl // 2 + rl
+    for ref_id, (name, length) in enumerate(contigs.items()):
+        seq = acgt[rng.integers(0, 4, length)].tobytes().decode()
+        genome[name] = seq
+        truth[name], h1, h2 = make_diploid(
+            rng, seq, n_het=length // 150, n_hom=length // 450, spacing=60)
+        haps = np.stack([np.searchsorted(acgt, np.frombuffer(
+            h.encode(), np.uint8)) for h in (h1, h2)]).astype(np.uint8)
+        n = length * CALL_COVERAGE // rl
+        start = np.sort(rng.integers(0, length - rl, n, dtype=np.int32))
+        idx = start[:, None] + np.arange(rl, dtype=np.int32)[None, :]
+        bases = haps[rng.integers(0, 2, n)[:, None], idx]
+        wrong = rng.random(bases.shape, dtype=np.float32) < CALL_READ_ERR
+        bases[wrong] = rng.integers(0, 4, int(wrong.sum()), dtype=np.uint8)
+        nib = (1 << bases).astype(np.uint8)        # A C G T -> 1 2 4 8
+        rec = np.zeros((n, rec_len), np.uint8)
+        h = rec[:, :head.itemsize].view(head).reshape(n)
+        h["block_size"] = rec_len - 4
+        h["ref_id"], h["pos"] = ref_id, start
+        h["l_name"], h["mapq"] = name_w + 1, rng.integers(30, 60, n)
+        h["bin"], h["n_cigar"], h["l_seq"] = 4680, 1, rl
+        h["flag"] = np.where(rng.random(n) < 0.5, 16, 0)
+        h["next_ref"], h["next_pos"] = -1, -1
+        h["name"] = [b"r%08d" % (ref_id * 10_000_000 + i) for i in range(n)]
+        h["cigar"] = rl << 4                       # rl M
+        rec[:, head.itemsize:head.itemsize + rl // 2] = \
+            (nib[:, 0::2] << 4) | nib[:, 1::2]
+        rec[:, head.itemsize + rl // 2:] = rng.integers(
+            15, 40, (n, rl), dtype=np.uint8)
+        records.append(rec.tobytes())
+    paths = {k: os.path.join(work, v) for k, v in (
+        ("ref", "ref.fa"), ("bam", "sample.bam"), ("truth", "truth.vcf"),
+        ("bed", "conf.bed"))}
+    write_fasta(paths["ref"], genome)
+    hdr = b"BAM\1" + (0).to_bytes(4, "little") \
+        + len(contigs).to_bytes(4, "little")
+    for name, length in contigs.items():
+        nb = name.encode() + b"\0"
+        hdr += len(nb).to_bytes(4, "little") + nb \
+            + length.to_bytes(4, "little")
+    payload = hdr + b"".join(records)
+    # zlib releases the interpreter lock: deflate the blocks in threads
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as ex, \
+            open(paths["bam"], "wb") as f:
+        for block in ex.map(bgzf_block, (payload[i:i + 60000] for i in
+                                         range(0, len(payload), 60000))):
+            f.write(block)
+        f.write(BGZF_EOF)
+    lines = []
+    for name in contigs:
+        rows = truth_vcf_lines(name, truth[name])
+        lines += rows if not lines else rows[2:]
+    with open(paths["truth"], "w") as f:
+        f.writelines(lines)
+    with open(paths["bed"], "w") as f:
+        f.writelines(f"{name}\t100\t{length - 100}\n"
+                     for name, length in contigs.items())
+    log(f"[data]  call world: contigs {contigs}, {CALL_COVERAGE}x reads of "
+        f"{rl} bp at {CALL_READ_ERR} substitutions a base, BAM "
+        f"{os.path.getsize(paths['bam']) / 1e6:.1f} MB "
+        f"({time.monotonic() - t0:.1f} s)")
+    return paths, truth
+
+
+def _stage_markers(run_dir):
+    """{stage: its .done record} of a `call` output; every stage must have
+    written one."""
+    out = {}
+    for st in CALL_STAGES:
+        path = os.path.join(run_dir, ".stages", f"{st}.done")
+        if not os.path.exists(path):
+            raise AssertionError(f"call: {st} wrote no .done marker")
+        with open(path) as f:
+            out[st] = dict(json.load(f), mtime_ns=os.stat(path).st_mtime_ns)
+    return out
+
+
+def phase_call(dev):
+    """Phase 4: make-train-data -> train-pileup -> `call --phaser native`
+    from a BAM, through the CLI on the card at full model width."""
+    import numpy as np
+    import torch
+
+    from nanosnp_tpu_torch.models.convert import pileup_checkpoint_from_params
+    from nanosnp_tpu_torch.ops import bilstm as K
+    from nanosnp_tpu_torch.runtime import cli
+    from nanosnp_tpu_torch.train.train_pileup import load_checkpoint
+
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(WORK)
+    rng = np.random.default_rng(SEED + 5)
+    paths, truth = _call_world(rng, WORK)
+    cfg = os.path.join(WORK, "cfg.yaml")
+    with open(cfg, "w") as f:
+        # label smoothing caps a fitted model's probabilities near 0.9,
+        # QUAL 10: under the QUAL 16 that s3 asks of a het it phases
+        f.write(f"train:\n  optim:\n    lr: {CALL_TRAIN_LR}\n"
+                "    label_smoothing: 0.0\n")
+    out = os.path.join(WORK, "out")
+    # on the card the device is the CLI's default; a rehearsal on the CPU
+    # names it
+    dev_args = [] if dev.type == "cuda" else ["--device", "cpu"]
+    rows, launches = {}, {}
+
+    def timed(name, argv):
+        K.reset_launch_counts()
+        t = time.monotonic()
+        if cli.main(argv) != 0:
+            raise AssertionError(f"{name} failed")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        dt = time.monotonic() - t
+        launches[name] = dict(K.LAUNCHES)
+        log(f"[{name}] {dt:.3f} s, launches {launches[name]}")
+        return dt
+
+    dt = timed("call: make-train-data", [
+        "make-train-data", "--bam", paths["bam"], "--ref", paths["ref"],
+        "--truth-vcf", paths["truth"], "--bed", paths["bed"], "--contigs",
+        "chrT", "-o", out])
+    with np.load(os.path.join(out, "train_data", "chrT.npz")) as z:
+        n_rows, n_var = len(z["positions"]), int(z["is_variant"].sum())
+    rows["call: make-train-data"] = dict(seconds=dt, rows=n_rows,
+                                         variants=n_var)
+    if n_var < len(truth["chrT"]) // 2:
+        raise AssertionError(f"make-train-data labeled {n_var} variants of "
+                             f"{len(truth['chrT'])}")
+    dt = timed("call: train-pileup", [
+        "train-pileup", "--config", cfg, "--data",
+        os.path.join(out, "train_data"), "--epochs", str(CALL_TRAIN_EPOCHS),
+        "--batch-size", str(CALL_TRAIN_BATCH), "--val-fraction", "0.1", "-o",
+        out] + dev_args)
+    recs = _train_records(os.path.join(out, "pileup_train"),
+                          CALL_TRAIN_EPOCHS)
+    rows["call: train-pileup"] = dict(
+        seconds=dt, steps=recs[-1]["step"], batch=CALL_TRAIN_BATCH,
+        final_train_loss=recs[-2]["loss"], final_val_loss=recs[-1]["loss"])
+    params, _ = load_checkpoint(os.path.join(out, "pileup_train",
+                                             "last.ckpt"))
+    ckpt = os.path.join(WORK, "pileup.chkpt")
+    torch.save(pileup_checkpoint_from_params(params), ckpt)
+
+    run = os.path.join(WORK, "run")
+    call = ["call", "--bam", paths["bam"], "--ref", paths["ref"],
+            "--pileup-model", ckpt, "--haplotype-model", V6B, "--phaser",
+            "native", "--contigs", "chrC"]
+    wall = timed("call", call + ["-o", run] + dev_args)
+    marks = _stage_markers(run)
+    m = {st: marks[st]["metrics"] for st in CALL_STAGES}
+    sec = {st: marks[st]["seconds"] for st in CALL_STAGES}
+    for name in ("bilstm_stream", "bilstm_center"):
+        if launches["call"][name] <= 0:
+            raise AssertionError(f"call never launched {name}")
+    if m["s2_pileup_predict"]["sites"] < CALL_MIN_CANDIDATES:
+        raise AssertionError(f"s2 saw {m['s2_pileup_predict']['sites']} "
+                             f"candidates, under {CALL_MIN_CANDIDATES}")
+    if not m["s3_phasing"]["phased_sites"] > 0:
+        raise AssertionError(f"s3 phased nothing: {m['s3_phasing']}")
+    if not m["s5_haplotype_predict"]["sites"] > 0:
+        raise AssertionError(f"s5 saw no site: {m['s5_haplotype_predict']}")
+    merged = _body(os.path.join(run, "merge.vcf"))
+    if not merged or any(len(r) != 10 or r[0] != "chrC"
+                         or not math.isfinite(float(r[5])) for r in merged):
+        raise AssertionError("merge.vcf rows malformed or empty")
+
+    # het SNPs against the world's truth (printed, not asserted)
+    hets = {t.pos1: t.alt for t in truth["chrC"] if not t.hom}
+    called = [(int(r[1]), r[4]) for r in merged
+              if r[6] == "PASS" and r[9].split(":")[0] in ("0/1", "1/0")]
+    tp = sum(hets.get(pos) == alt for pos, alt in called)
+    units = {"s1_pileup_features": ("candidates", m["s1_pileup_features"][
+                 "candidates"]),
+             "s2_pileup_predict": ("sites", m["s2_pileup_predict"]["sites"]),
+             "s3_phasing": ("sites", m["s3_phasing"]["sites"]),
+             "s4_haplotype_features": ("groups", m["s4_haplotype_features"][
+                 "groups"]),
+             "s5_haplotype_predict": ("sites", m["s5_haplotype_predict"][
+                 "sites"]),
+             "s6_merge": ("rows", len(merged))}
+    rows["call"] = dict(
+        wall_seconds=wall, stage_seconds=sec,
+        stage_share={st: sec[st] / wall for st in CALL_STAGES},
+        device_stage_share=(sec["s2_pileup_predict"]
+                            + sec["s5_haplotype_predict"]) / wall,
+        per_s={st: {units[st][0]: units[st][1],
+                    "per_s": units[st][1] / sec[st]} for st in CALL_STAGES},
+        pileup_rows_s1=m["s1_pileup_features"]["rows"],
+        phased_sites=m["s3_phasing"]["phased_sites"],
+        deferred=m["s5_haplotype_predict"].get("deferred"),
+        rescued=m["s6_merge"].get("rescued"), merge_rows=len(merged),
+        truth_hets=len(hets), called_hets=len(called),
+        het_recall=tp / max(len(hets), 1),
+        het_precision=tp / max(len(called), 1))
+    log("[call] " + json.dumps(rows["call"]))
+
+    # a second call on the same output resumes and runs no stage
+    dt = timed("call: resume", call + ["-o", run] + dev_args)
+    again = _stage_markers(run)
+    if any(again[st]["mtime_ns"] != marks[st]["mtime_ns"]
+           for st in CALL_STAGES) or sum(launches["call: resume"].values()):
+        raise AssertionError("the second call ran a stage again")
+    rows["call: resume"] = dict(seconds=dt)
+
+    # once more into a fresh output under torch.profiler: the card's busy
+    # time over the wall time of the whole call (models and kernels warm)
+    if dev.type == "cuda":
+        run2 = os.path.join(WORK, "run_profiled")
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        t = time.monotonic()
+        with torch.profiler.profile(activities=acts) as prof:
+            if cli.main(call + ["-o", run2]) != 0:
+                raise AssertionError("the profiled call failed")
+            torch.cuda.synchronize()
+        wall2 = time.monotonic() - t
+        busy = 0.0
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            t_us = getattr(e, "self_device_time_total", None)
+            if t_us is None:
+                t_us = getattr(e, "self_cuda_time_total", 0)
+            busy += t_us / 1e6
+        marks2 = _stage_markers(run2)
+        rows["call: profiled"] = dict(
+            wall_seconds=wall2,
+            stage_seconds={st: marks2[st]["seconds"] for st in CALL_STAGES},
+            device_busy_seconds=busy if busy else None,
+            device_idle_share=1 - busy / wall2 if busy else None)
+        log("[call: profiled] " + json.dumps(rows["call: profiled"]))
     shutil.rmtree(WORK, ignore_errors=True)
     return launches, rows
 
@@ -1370,6 +1738,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    # the numpy-only world generators beside the tests
+    sys.path.insert(1, os.path.join(ROOT, "tests"))
     from nanosnp_tpu_torch.ops import bilstm as K
     from nanosnp_tpu_torch.ops import build
 
@@ -1387,6 +1757,11 @@ def main() -> int:
     t0 = time.monotonic()
     reports = build.build_all()
     log(f"[build] {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    from nanosnp_tpu_torch.io import native
+
+    native.get_lib()
+    log(f"[build] host engine (g++): {time.monotonic() - t0:.1f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
@@ -1402,8 +1777,14 @@ def main() -> int:
     rows += phase_new_kernels(dev)
     log(f"[phase 1c] {time.monotonic() - t0:.1f} s")
     launches, stage_rows = {}, {}
+    t0 = time.monotonic()
+    probe_rows, probe_launches = phase_probe(dev)
+    rows += probe_rows
+    launches.update(probe_launches)
+    log(f"[phase 1d] {time.monotonic() - t0:.1f} s")
     for label, phase in (("2", phase_slice), ("2b", phase_routes),
-                         ("2c", phase_legacy), ("3", phase_train)):
+                         ("2c", phase_legacy), ("3", phase_train),
+                         ("4", phase_call)):
         t0 = time.monotonic()
         phase_launches, phase_rows = phase(dev)
         launches.update(phase_launches)

@@ -1,21 +1,130 @@
-"""The 105-statistic haplotype featurizer, as torch reductions on the
-device, and the reference-base code helpers.
+"""Haplotype-stage features: candidate-group selection (numpy, s4), the
+105-statistic featurizer as torch reductions on the device (s5), and the
+reference-base code helpers.
 
-Counterpart of nanosnp_tpu/features/haplotype.py (the reference's
-HaplotypeModel/dataset_dev.py:11-87): per site and position column, 26
+Counterpart of nanosnp_tpu/features/haplotype.py. Group selection ports
+reference HaplotypeModel/select_hetesnp_homosnp.py:122-230 (vectorized:
+nearest-5 support hets on each side via searchsorted). The reference's
+`find_adjacent_sites` returns only its last contig's groups
+(select_hetesnp_homosnp.py:228, an indentation bug masked in production
+because each worker receives one contig); here, as in the JAX package,
+selection is per contig and correct for any fan-out.
+
+The featurizer (the reference's HaplotypeModel/dataset_dev.py:11-87): per
+site and position column, 26
 statistics (A/C/G/T/D frequency and count, per-base baseq sum and mean,
 mapq sum and mean) over 4 read groups (all, HP=1, HP=2, unphased), plus a
 reference-base row -> [N, L, 105] feature-last. Read-matrix encoding: 0
-absent, 1-4 = ACGT, -1 deletion, -2 depth padding. The group selection of
-s4 (collect_sites, build_groups, chunk_groups) belongs to the host stages
-and is not part of this slice.
+absent, 1-4 = ACGT, -1 deletion, -2 depth padding.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Iterable, List, Tuple
 
 import numpy as np
 import torch
 
 from .. import constants as C
+
+# ---------------------------------------------------------------------------
+# Candidate-group selection
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class ContigSites:
+    """Kept sites of one contig (het any-qual + low-qual homo), pos-sorted."""
+    contig: str
+    positions: np.ndarray   # [S] int64
+    quals: np.ndarray       # [S] float32
+    is_het: np.ndarray      # [S] bool (genotype 0/1 after |/ normalization)
+
+
+def collect_sites(
+    vcf_lines: Iterable[str],
+    quality_threshold: float = C.HAP_LOW_QUAL,
+) -> Dict[str, ContigSites]:
+    """Parse a pileup VCF keeping het sites and low-quality homozygous sites
+    (reference select_hetesnp_homosnp.py:146-150)."""
+    per: Dict[str, List[Tuple[int, float, bool]]] = {}
+    for row in vcf_lines:
+        if not row.strip() or row[0] == "#":
+            continue
+        cols = row.split()
+        genotype = cols[9].split(":")[0].replace("|", "/")
+        quality = float(cols[5])
+        if genotype in ("0/0", "1/1") and quality >= quality_threshold:
+            continue
+        per.setdefault(cols[0], []).append(
+            (int(cols[1]), quality, genotype == "0/1"))
+    out = {}
+    for ctg, rows in per.items():
+        rows.sort()
+        out[ctg] = ContigSites(
+            contig=ctg,
+            positions=np.array([r[0] for r in rows], dtype=np.int64),
+            quals=np.array([r[1] for r in rows], dtype=np.float32),
+            is_het=np.array([r[2] for r in rows], dtype=bool),
+        )
+    return out
+
+
+def build_groups(
+    sites: ContigSites,
+    adjacent_size: int = C.ADJACENT_SIZE,
+    quality_threshold: float = C.HAP_LOW_QUAL,
+    support_quality: float = C.HAP_SUPPORT_QUAL,
+) -> np.ndarray:
+    """[G, 2*adjacent_size+1] positions: [5 left hets, candidate, 5 right
+    hets]; candidates lacking 5 qualifying hets on either side are dropped
+    (reference find_adjacent_sites:189-224)."""
+    cand_idx = np.flatnonzero(sites.quals < quality_threshold)
+    sup_idx = np.flatnonzero((sites.quals >= support_quality) & sites.is_het)
+    if len(cand_idx) == 0 or len(sup_idx) < 2 * adjacent_size:
+        return np.zeros((0, 2 * adjacent_size + 1), dtype=np.int64)
+    # for candidate at site-index i: supports strictly left / right of i
+    left_cnt = np.searchsorted(sup_idx, cand_idx, side="left")
+    right_start = np.searchsorted(sup_idx, cand_idx, side="right")
+    ok = (left_cnt >= adjacent_size) & (right_start + adjacent_size <= len(sup_idx))
+    cand_idx = cand_idx[ok]
+    left_cnt = left_cnt[ok]
+    right_start = right_start[ok]
+    if len(cand_idx) == 0:
+        return np.zeros((0, 2 * adjacent_size + 1), dtype=np.int64)
+    offs = np.arange(adjacent_size)
+    left = sup_idx[left_cnt[:, None] - adjacent_size + offs[None, :]]
+    right = sup_idx[right_start[:, None] + offs[None, :]]
+    groups = np.concatenate(
+        [sites.positions[left], sites.positions[cand_idx][:, None],
+         sites.positions[right]], axis=1)
+    return groups
+
+
+def chunk_groups(
+    groups: np.ndarray,
+    chunk: int = C.GROUP_CHUNK,
+    gap: int = C.GROUP_GAP,
+) -> List[np.ndarray]:
+    """Split a contig's groups into extraction sub-batches of <= `chunk`
+    groups, broken where consecutive groups are > `gap` bp apart
+    (reference make_predict_bins.py:89-109)."""
+    out = []
+    n = len(groups)
+    start = 0
+    for i in range(1, n + 1):
+        if (i == n or i - start == chunk
+                or groups[i][0] - groups[i - 1][-1] > gap):
+            out.append(groups[start:i])
+            start = i
+        if i == n:
+            break
+    return [g for g in out if len(g)]
+
+
+# ---------------------------------------------------------------------------
+# 105-statistic featurizer (device-side)
+# ---------------------------------------------------------------------------
 
 
 def _group_stats(seq, baseq, mapq, member):

@@ -1,12 +1,14 @@
 """Feature-shard storage: the shard parts of the JAX package's io/bins.py,
 copied so that both packages read and write the same files.
 
-Shards are .npz (zstd-wrapped by default, plain deflate zip with
-NSP_SHARD_CODEC=deflate). The HDF5 interop and training-bin helpers of the
-JAX package are not part of the port's inference slice.
+Shards are .npz: zstd-wrapped where the `zstandard` module is installed,
+plain deflate zip where it is not or under NSP_SHARD_CODEC=deflate (see
+`shard_codec`). The HDF5 interop and training-bin helpers of the JAX
+package are not part of the port.
 """
 from __future__ import annotations
 
+import importlib.util
 import os
 from dataclasses import dataclass
 from typing import Dict, List
@@ -71,13 +73,20 @@ class PileupShard:
 _ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"
 
 
-def _zstd():
-    try:
-        import zstandard
-
-        return zstandard
-    except ImportError:  # pragma: no cover - zstandard ships in the image
-        return None
+def shard_codec() -> str:
+    """The container new shards are written in: "zstd" or "deflate".
+    NSP_SHARD_CODEC decides when set (asking for zstd without the
+    `zstandard` module raises); unset, it is zstd where that module is
+    installed and deflate where it is not. Readers sniff the magic, so
+    either kind loads wherever its codec exists."""
+    have = importlib.util.find_spec("zstandard") is not None
+    asked = os.environ.get("NSP_SHARD_CODEC")
+    if asked is None:
+        return "zstd" if have else "deflate"
+    if asked == "zstd" and not have:
+        raise RuntimeError("NSP_SHARD_CODEC=zstd but the zstandard module "
+                           "is not installed")
+    return "zstd" if asked == "zstd" else "deflate"
 
 
 def _savez_fast(path: str, arrays, compresslevel: int = 1) -> None:
@@ -97,9 +106,9 @@ def _savez_fast(path: str, arrays, compresslevel: int = 1) -> None:
 
     if not path.endswith(".npz"):
         path += ".npz"
-    zstd = _zstd() if os.environ.get("NSP_SHARD_CODEC",
-                                     "zstd") == "zstd" else None
-    if zstd is not None:
+    if shard_codec() == "zstd":
+        import zstandard as zstd
+
         raw = _io.BytesIO()
         with zipfile.ZipFile(raw, "w", zipfile.ZIP_STORED) as zf:
             for name, arr in arrays.items():
@@ -129,10 +138,11 @@ def open_npz(path: str):
         return np.load(path)
     import io as _io
 
-    zstd = _zstd()
-    if zstd is None:  # pragma: no cover - zstandard ships in the image
+    if importlib.util.find_spec("zstandard") is None:
         raise RuntimeError(f"{path} is zstd-compressed but the zstandard "
-                           "module is unavailable")
+                           "module is not installed")
+    import zstandard as zstd
+
     with open(path, "rb") as f:
         raw = zstd.ZstdDecompressor().stream_reader(f).read()
     return np.load(_io.BytesIO(raw))

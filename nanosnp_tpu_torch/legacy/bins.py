@@ -1,4 +1,5 @@
-"""Legacy .bin (HDF5) schema interop.
+"""Legacy .bin (HDF5) schema interop, and `build_legacy_bins`, which writes
+the bins per contig.
 
 The reference's make_predict_groups.py:232-283 writes one PyTables file
 per contig with edge/pair-route matrices, per-group read matrices at the
@@ -11,17 +12,15 @@ stack).
 A path ending in `.npz` holds the same datasets, under the same names,
 shapes and types, in a numpy archive: h5py is an optional dependency, and
 a machine without it can still write and read legacy bins that way.
-
-The per-contig bin builder (`build_legacy_bins` of the JAX package, behind
-`legacy-make-groups`) needs the BAM extractor and is not ported yet.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+import os
+from typing import Dict, List, Optional
 
 import numpy as np
 
-from .edges import pad_depth
+from .edges import legacy_group_arrays, pad_depth
 
 _STR_KEYS = ("position", "edge_columns", "pair_columns", "group_positions")
 _MAT_KEYS = ("edge_matrix", "pair_route", "read_matrix",
@@ -101,3 +100,47 @@ def load_legacy_bin(path: str) -> Dict[str, np.ndarray]:
         out[key] = np.char.decode(raw[key].astype("S"), "utf-8")
     out["position"] = out["position"].reshape(-1)
     return out
+
+
+def build_legacy_bins(
+    pileup_vcf: str,
+    bam_paths: Dict[str, str],
+    out_dir: str,
+    max_coverage: int = 150,
+    quality_threshold: float = 15.0,
+    support_quality: float = 19.0,
+    adjacent_size: int = 5,
+    contigs: Optional[List[str]] = None,
+    suffix: str = ".bin",
+) -> Dict[str, int]:
+    """make_predict_groups.py Run(): pileup VCF -> groups -> per-contig
+    legacy bins. bam_paths maps contig -> BAM (a per-HP-tag split BAM in
+    the legacy dual-bin flow, or any haplotagged/plain BAM). `suffix`
+    ".bin" writes HDF5 (needs h5py), ".npz" the numpy archive."""
+    from ..features.haplotype import build_groups, collect_sites
+    from ..runtime.extract import NativeBamExtractor
+
+    os.makedirs(out_dir, exist_ok=True)
+    with open(pileup_vcf) as fh:
+        sites = collect_sites(fh, quality_threshold=quality_threshold)
+    extractor = NativeBamExtractor(bam_paths, max_coverage=max_coverage)
+    written: Dict[str, int] = {}
+    try:
+        for ctg, cs in sorted(sites.items()):
+            if contigs and ctg not in contigs:
+                continue
+            if ctg not in bam_paths:
+                continue
+            groups = build_groups(cs, adjacent_size=adjacent_size,
+                                  quality_threshold=quality_threshold,
+                                  support_quality=support_quality)
+            if len(groups) == 0:
+                continue
+            arrays = legacy_group_arrays(extractor, ctg, groups)
+            if arrays is None or not arrays["position"]:
+                continue
+            written[ctg] = save_legacy_bin(
+                os.path.join(out_dir, f"{ctg}{suffix}"), arrays)
+    finally:
+        extractor.close()
+    return written

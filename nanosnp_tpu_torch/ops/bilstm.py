@@ -32,13 +32,14 @@ from typing import Dict
 
 import torch
 
-# every CUDA kernel of the port (those of lstm_train.py and
-# bilstm_fused.py counted here too)
+# every CUDA kernel of the port (those of lstm_train.py, bilstm_fused.py
+# and probe.py counted here too)
 LAUNCHES: Dict[str, int] = {"bilstm_stream": 0, "bilstm_center": 0,
                             "lstm_recurrence_train": 0,
                             "lstm_recurrence_bwd": 0, "lstm_dw_reduce": 0,
                             "lstm_recurrence_infer": 0,
-                            "bilstm_center_head": 0, "bilstm2_center": 0}
+                            "bilstm_center_head": 0, "bilstm2_center": 0,
+                            "bilstm_probe": 0}
 
 
 def reset_launch_counts() -> None:

@@ -31,6 +31,10 @@ SOURCES: Dict[str, Dict[str, List]] = {
         # x, packed weights, b, out, n, seq_len, d_in, hidden, stream
         "nsp_bilstm_center": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
+    "bilstm_probe": {
+        # x, packed weights, b, out, mode, n, seq_len, d_in, hidden, stream
+        "nsp_bilstm_probe": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
     "bilstm_fused": {
         # x, packed weights, b, packed wp, bp, packed wd, bd, packed wh, bh,
         # out, n, seq_len, d_in, hidden, p, q, r (padded), n_out, stream

@@ -4,10 +4,19 @@ Commands ported so far (same flags as the JAX package's CLI, plus
 `--device`: cuda by default; cpu runs the kernels' plain versions, and the
 trainers the f32 path, as the JAX trainer does off the TPU):
 
+  call             the pipeline end to end on one host: s1 pileup features
+                   (BAM or mpileup) -> s2 pileup model -> s3 phasing ->
+                   s4 haplotype features -> s5 haplotype model -> s6 merge,
+                   with `.done` markers for resume
+  s1-features      mpileup -> pileup shards
   s2-predict       pileup shards -> pileup.vcf
   s6-merge         pileup.vcf + haplotype.csv -> merge.vcf
+  sort-vcf         contig/position sort of a VCF
+  split-bam        native BAM splitting per contig or by HP tag
+  make-train-data  BAM + truth VCF (+ BED) -> labeled pileup arrays (.npz)
   train-pileup     labeled pileup arrays (.npz) -> pileup_train/ checkpoints
   train-haplotype  haplotype shards + truth VCF + BED -> haplotype_train/
+  legacy-make-groups  pileup VCF + BAM(s) -> per-contig legacy bins
   legacy-predict   dual-tag legacy bins + CatModel params -> legacy_calls.tsv
   legacy-eval      the same against truth labels -> legacy_eval.tsv
   legacy-train     dual-tag legacy bins + truth -> catmodel.npz (the f32
@@ -15,19 +24,23 @@ trainers the f32 path, as the JAX trainer does off the TPU):
   legacy-filter-labels  label-noise positions -> filtered_positions.txt
   legacy-heuristic      edge-graph homozygote caller (numpy, no device)
 
-`legacy-make-groups` is not ported yet (it needs the BAM extractor).
-s5 has no subcommand (the JAX CLI has none either): it runs through
+Multi-host `call` (`--num-hosts` above 1) and the `evaluate-*` commands
+are not ported yet. s5 has no subcommand (the JAX CLI has none either): it runs through
 `runtime.stages.stage_haplotype_predict`.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 import os
 
 from ..config import load_config
+from ..constants import ALL_CHROMS
 from ..device import resolve_device
 from ..io.fasta import FastaReference
 from . import stages
+from .pipeline import PipelineRunner, Stage
 
 
 def _add_common(p):
@@ -39,6 +52,66 @@ def _add_common(p):
 
 def _add_device(p):
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+
+def _run_make_train_data(args, cfg) -> int:
+    import numpy as np
+
+    from ..features.pileup import assemble_windows
+    from ..io.bam import BamFile
+    from ..train import data as D
+
+    if args.h5:
+        raise NotImplementedError(
+            "make-train-data --h5 is not ported (the reference-layout HDF5 "
+            "train bins need h5py); the .npz arrays are written without it")
+    ref = FastaReference(args.ref)
+    with open(args.truth_vcf) as f:
+        truth = D.split_truth_vcf(f)
+    bed_masks = None
+    if args.bed:
+        with open(args.bed) as f:
+            intervals = D.extend_bed_intervals(
+                [(c, int(s), int(e)) for c, s, e, *_ in
+                 (l.split("\t") for l in f if l.strip())])
+        bed_masks = {}
+        for ctg, s, e in intervals:
+            if ctg not in bed_masks and ctg in ref.by_name:
+                bed_masks[ctg] = np.zeros(ref.length(ctg), dtype=bool)
+            if ctg in bed_masks:
+                bed_masks[ctg][s:e] = True
+    rng = np.random.default_rng(cfg.train.seed)
+    fc = cfg.pileup_feature
+    out_dir = os.path.join(args.output, "train_data")
+    os.makedirs(out_dir, exist_ok=True)
+    total = {"sites": 0, "variants": 0}
+    with BamFile(args.bam) as bam:
+        contigs = args.contigs or [c for c, _ in bam.references()
+                                   if c in ref.by_name]
+        for ctg in contigs:
+            seq = ref.contig(ctg)
+            pile = bam.pileup_region(
+                ctg, 0, len(seq), seq,
+                snp_min_af=fc.snp_min_af, indel_min_af=fc.indel_min_af,
+                min_coverage=fc.min_depth, max_indel=fc.max_indel_size,
+                min_mq=fc.mpileup_min_mq, excl_flags=fc.mpileup_excl_flags,
+                max_depth=fc.mpileup_max_depth)
+            if bed_masks is not None and ctg in bed_masks:
+                keep = bed_masks[ctg][pile.positions - 1]
+                pile.positions = pile.positions[keep]
+                pile.counts = pile.counts[keep]
+                pile.depths = pile.depths[keep]
+                pile.is_candidate = pile.is_candidate[keep]
+                pile.afs = pile.afs[keep]
+                pile.alt_info = [a for a, k in zip(pile.alt_info, keep) if k]
+            batch = assemble_windows(pile, seq, fc.flanking_bases)
+            arrays = D.build_pileup_train_arrays(
+                batch, truth.get(ctg, []), args.max_nonvariant_ratio, rng)
+            D.save_train_arrays(os.path.join(out_dir, f"{ctg}.npz"), arrays)
+            total["sites"] += len(arrays.positions)
+            total["variants"] += int(arrays.is_variant.sum())
+    print(total)
+    return 0
 
 
 def _run_train_pileup(args, cfg) -> int:
@@ -155,6 +228,35 @@ def _run_train_haplotype(args, cfg) -> int:
         device=args.device, resume_from=args.resume,
         val_iter_factory=val_factory, lr_steps_per_epoch=steps_hint)
     print({"steps": state.step, "epochs": state.epoch})
+    return 0
+
+
+def _legacy_bam_paths(bam_arg, contigs=None):
+    """Directory of {contig}.bam files, or one BAM mapped to every contig
+    in its header."""
+    if os.path.isdir(bam_arg):
+        return {f[:-4]: os.path.join(bam_arg, f)
+                for f in os.listdir(bam_arg) if f.endswith(".bam")}
+    from ..io.bam import BamFile
+
+    with BamFile(bam_arg) as bam:
+        names = [c for c, _ in bam.references()]
+    if contigs:
+        names = [c for c in names if c in contigs]
+    return {c: bam_arg for c in names}
+
+
+def _run_legacy_make_groups(args, cfg) -> int:
+    from ..legacy.bins import build_legacy_bins
+
+    written = build_legacy_bins(
+        args.pileup_vcf, _legacy_bam_paths(args.bam, args.contigs),
+        args.output, max_coverage=args.max_coverage,
+        quality_threshold=args.min_quality,
+        support_quality=args.support_quality,
+        adjacent_size=args.adjacent_size, contigs=args.contigs,
+        suffix=".npz" if args.npz else ".bin")
+    print({"contigs": len(written), "groups": sum(written.values())})
     return 0
 
 
@@ -450,6 +552,26 @@ def _add_legacy_parsers(sub) -> None:
         p.add_argument("--truth-vcf", required=True)
         p.add_argument("--bed", required=True)
 
+    p = sub.add_parser("legacy-make-groups",
+                       help="legacy cat-model path: pileup VCF + BAM(s) -> "
+                            "per-contig edge/read-matrix bins (reference "
+                            "make_predict_groups.py)")
+    _add_common(p)
+    p.add_argument("--pileup-vcf", required=True)
+    p.add_argument("--bam", required=True,
+                   help="directory of {contig}.bam files, or one BAM used "
+                        "for every contig (a per-HP split from split-bam "
+                        "--by-tag in the dual-bin flow)")
+    p.add_argument("--contigs", nargs="*", default=None)
+    p.add_argument("--adjacent-size", type=int, default=5)
+    p.add_argument("--min-quality", type=float, default=15.0)
+    p.add_argument("--support-quality", type=float, default=19.0)
+    p.add_argument("--max-coverage", type=int, default=150)
+    p.add_argument("--npz", action="store_true",
+                   help="write {contig}.npz numpy archives of the same "
+                        "datasets instead of HDF5 {contig}.bin (no h5py "
+                        "needed)")
+
     p = sub.add_parser("legacy-predict",
                        help="legacy CatModel inference over dual-tag bins "
                             "(reference HaplotypeModel/predict.py)")
@@ -518,16 +640,310 @@ def _add_legacy_parsers(sub) -> None:
                         "reference tool hardcodes 2")
 
 
-_LEGACY = {"legacy-predict": _run_legacy_predict,
+_LEGACY = {"legacy-make-groups": _run_legacy_make_groups,
+           "legacy-predict": _run_legacy_predict,
            "legacy-eval": _run_legacy_eval,
            "legacy-train": _run_legacy_train,
            "legacy-filter-labels": _run_legacy_filter_labels,
            "legacy-heuristic": _run_legacy_heuristic}
 
 
+def _ensure_mpileup_dir(args, cfg, work_dir=None, contigs=None) -> str:
+    if getattr(args, "mpileup_dir", None):
+        return args.mpileup_dir
+    work_dir = work_dir or args.output
+    contigs = contigs if contigs is not None else args.contigs
+    out = os.path.join(work_dir, "chr_mpileup")
+    if getattr(args, "mpileup", None):
+        if not os.path.isdir(out) or not os.listdir(out):
+            stages.split_mpileup_by_contig(args.mpileup, out, contigs)
+        return out
+    if getattr(args, "bam", None):
+        from . import external
+
+        mp = os.path.join(work_dir, "pileup_data.mpileup")
+        if not os.path.exists(mp):
+            fc = cfg.pileup_feature
+            external.run_mpileup(args.bam, args.ref, mp,
+                                 min_mq=fc.mpileup_min_mq,
+                                 max_depth=fc.mpileup_max_depth,
+                                 excl_flags=fc.mpileup_excl_flags)
+        stages.split_mpileup_by_contig(mp, out, contigs)
+        return out
+    raise SystemExit("one of --mpileup-dir / --mpileup / --bam is required")
+
+
+def resolve_contigs(requested, ref) -> list:
+    """Contigs the call pipeline works on: the user's --contigs, else the
+    reference's major-contig order (run_caller.sh operates chr1..chrX/Y),
+    else, when the FASTA uses nonstandard names (synthetic worlds,
+    non-human assemblies), every FASTA contig. Never empty for a
+    non-empty FASTA: an empty list would silently skip s4/s5."""
+    return (list(requested) if requested
+            else [c for c in ALL_CHROMS if c in ref.by_name]
+            or [e.name for e in ref.entries])
+
+
+def _run_call(args, cfg) -> int:
+    """`call` on one host, as the JAX package's `_run_call`: the stage
+    graph under a PipelineRunner with `.done` resume. s2 and s5 run on
+    `--device`; while s1 (and s3, s4) run on the host, background threads
+    get the card, the kernels' library and the weights ready."""
+    n_hosts = args.num_hosts if args.num_hosts is not None \
+        else int(os.environ.get("NSP_NUM_PROCS", "1"))
+    if n_hosts > 1:
+        raise NotImplementedError(
+            "multi-host `call` (--num-hosts > 1) is not ported yet: "
+            "ROADMAP.md A.6")
+    device = resolve_device(args.device)
+    ref = FastaReference(args.ref)
+    contigs = resolve_contigs(args.contigs, ref)
+    work_dir = args.output
+    os.makedirs(work_dir, exist_ok=True)
+    runner = PipelineRunner(work_dir)
+    shard_dir = os.path.join(work_dir, "pileup_shards")
+    pileup_vcf = os.path.join(work_dir, "pileup.vcf")
+    warm = {}
+
+    def s1(**kw):
+        if args.bam:
+            # native path: direct BAM pileup, no samtools round trip
+            return stages.stage_pileup_features_from_bam(
+                cfg, ref, args.bam, shard_dir, contigs)
+        return stages.stage_pileup_features(
+            cfg, ref, _ensure_mpileup_dir(args, cfg, work_dir, contigs),
+            shard_dir, contigs)
+
+    def s2(**kw):
+        if "s2" in warm:
+            warm.pop("s2").join_raise()
+        return stages.stage_pileup_predict(
+            cfg, ref, shard_dir, pileup_vcf, model_path=args.pileup_model,
+            device=device)
+
+    stage_list = [
+        Stage("s1_pileup_features", s1, "BAM/mpileup -> candidate windows"),
+        Stage("s2_pileup_predict", s2,
+              "pileup model inference -> pileup.vcf"),
+    ]
+    if args.haplotype_model:
+        from . import external
+        from .extract import NativeBamExtractor
+
+        hap_shards = os.path.join(work_dir, "haplotype_shards")
+        hap_csv = os.path.join(work_dir, "haplotype.csv")
+        merge_vcf = os.path.join(work_dir, "merge.vcf")
+        tag_dir_holder = {}
+
+        phase_native_dir = os.path.join(work_dir, "phase_native")
+
+        def s3(**kw):
+            if not args.bam:
+                raise SystemExit("stages s3-s5 need --bam")
+            mode = args.phaser
+            if mode == "auto":
+                mode = "whatshap" if external.have("whatshap") else "native"
+            if mode == "unphased" or (mode == "whatshap"
+                                      and not external.have("whatshap")):
+                # No phaser. Unphased reads degrade the haplotype features
+                # (every read lands in the 'unphased' group), so this is
+                # opt-in; the reference hard-depends on whatshap
+                # (scripts/s3_phasing_long_reads.sh:48-69).
+                if not args.allow_unphased:
+                    raise SystemExit(
+                        f"phaser '{mode}' unavailable: install whatshap, "
+                        "use --phaser native (built-in), pass "
+                        "--allow-unphased to run s4/s5 with every read "
+                        "unphased (reduced accuracy), or drop "
+                        "--haplotype-model to stop after the pileup stage.")
+                tag_dir_holder["paths"] = {c: args.bam for c in contigs}
+                return {"phased": 0, "unphased_fallback": True,
+                        "note": f"phaser {mode} (--allow-unphased)"}
+            if mode == "native":
+                m = stages.stage_phase_native(
+                    cfg, ref, pileup_vcf, args.bam, phase_native_dir,
+                    contigs, emit_tagged_bams=args.emit_tagged_bams)
+                tag_dir_holder["paths"] = {c: args.bam for c in contigs}
+                tag_dir_holder["hp_overrides"] = \
+                    stages.load_native_phase_overrides(phase_native_dir)
+                m["engine"] = "native"
+                return m
+            from ..decode.sort import select_phasing_hetesnps
+
+            work = os.path.join(work_dir, "phase_work")
+            os.makedirs(work, exist_ok=True)
+            with open(pileup_vcf) as f:
+                header, per_contig = select_phasing_hetesnps(
+                    f, cfg.haplotype_feature.phase_het_quality)
+            split_vcfs = {}
+            for ctg, rows in per_contig.items():
+                p = os.path.join(work, f"{ctg}.splited.vcf")
+                with open(p, "w") as f:
+                    f.writelines(header)
+                    f.writelines(rows)
+                split_vcfs[ctg] = p
+            split_bams = external.split_bam_by_contig(
+                args.bam, list(split_vcfs), os.path.join(work, "split_bams"),
+                threads=cfg.threads or 8)
+            tagged = external.phase_and_haplotag(
+                split_vcfs, split_bams, args.ref, work,
+                threads=cfg.threads or 8)
+            tag_dir_holder["paths"] = tagged
+            return {"phased": len(tagged)}
+
+        def s4(**kw):
+            paths = tag_dir_holder.get("paths")
+            hp_overrides = tag_dir_holder.get("hp_overrides")
+            if not paths:
+                # resumed run: pick up previously haplotagged BAMs or the
+                # native phaser's HP partition if present
+                tag_dir = os.path.join(work_dir, "phase_work",
+                                       "haplotag_out")
+                if os.path.isdir(tag_dir) and os.listdir(tag_dir):
+                    paths = {f[:-4]: os.path.join(tag_dir, f)
+                             for f in os.listdir(tag_dir)
+                             if f.endswith(".bam")}
+                elif os.path.isdir(phase_native_dir):
+                    hp_overrides = stages.load_native_phase_overrides(
+                        phase_native_dir)
+                    if hp_overrides:
+                        paths = {c: args.bam for c in contigs}
+            if not paths:
+                paths = {c: args.bam for c in contigs}
+            extractor = NativeBamExtractor(
+                paths, cfg.haplotype_feature.max_coverage,
+                hp_overrides=hp_overrides,
+                nbase_chunk_drop=cfg.haplotype_feature.nbase_chunk_drop)
+            try:
+                return stages.stage_haplotype_features(
+                    cfg, ref, pileup_vcf, extractor, hap_shards)
+            finally:
+                extractor.close()
+
+        def s5(**kw):
+            if "s5" in warm:
+                warm.pop("s5").join_raise()
+            return stages.stage_haplotype_predict(
+                cfg, ref, hap_shards, hap_csv, device=device,
+                model_path=args.haplotype_model)
+
+        # fingerprints: the merge knobs feed s5 (deferral gate drops rows
+        # there) and s6; changing them on a resumed run must invalidate
+        # the stale artifacts (pipeline.Stage.fingerprint).
+        merge_fp = json.dumps(dataclasses.asdict(cfg.merge), sort_keys=True)
+        stage_list += [
+            Stage("s3_phasing", s3, "whatshap phase + haplotag"),
+            Stage("s4_haplotype_features", s4,
+                  "group selection + read matrices"),
+            Stage("s5_haplotype_predict", s5,
+                  "haplotype model inference -> haplotype.csv",
+                  fingerprint=f"defer={cfg.merge.defer_unphased_frac}"),
+            Stage("s6_merge",
+                  lambda **kw: stages.stage_merge(cfg, pileup_vcf, hap_csv,
+                                                  merge_vcf),
+                  "merge calls", fingerprint=merge_fp),
+        ]
+        # skipped when s5 is already .done (resume): nothing would use it
+        s5_done = os.path.join(work_dir, ".stages",
+                               "s5_haplotype_predict.done")
+        if args.no_resume or not os.path.exists(s5_done):
+            warm["s5"] = stages.prewarm_haplotype_model(
+                cfg, args.haplotype_model, device)
+    s2_done = os.path.join(work_dir, ".stages", "s2_pileup_predict.done")
+    if args.no_resume or not os.path.exists(s2_done):
+        warm["s2"] = stages.prewarm_pileup_model(cfg, args.pileup_model,
+                                                 device)
+    try:
+        runner.run(stage_list, resume=not args.no_resume)
+    finally:
+        # a thread no stage waited for (its stage was skipped, or an
+        # earlier one failed) is joined here; its error is re-raised
+        # unless one is already on its way up
+        stages.join_prewarm_threads()
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="nanosnp_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("call", help="run the pipeline end to end")
+    _add_common(p)
+    p.add_argument("--bam", help="input BAM (read natively; s3-s5 need it)")
+    p.add_argument("--mpileup", help="pre-computed whole-genome mpileup file")
+    p.add_argument("--mpileup-dir", help="per-contig mpileup directory")
+    p.add_argument("--ref", required=True, help="reference FASTA")
+    p.add_argument("--pileup-model", required=True)
+    p.add_argument("--haplotype-model", default=None)
+    p.add_argument("--contigs", nargs="*", default=None)
+    p.add_argument("--coverage", type=int, default=30)
+    p.add_argument("--no-resume", action="store_true")
+    p.add_argument("--allow-unphased", action="store_true",
+                   help="proceed through s4/s5 with untagged reads when "
+                        "no phaser is available (degrades haplotype "
+                        "features; off by default)")
+    p.add_argument("--phaser", default="auto",
+                   choices=["auto", "whatshap", "native", "unphased"],
+                   help="s3 engine: whatshap (reference parity, external), "
+                        "native (built-in read-backed phaser, no external "
+                        "deps), auto = whatshap if installed else native")
+    p.add_argument("--emit-tagged-bams", action="store_true",
+                   help="with --phaser native: also write haplotag_out/"
+                        "{contig}.bam copies (whatshap-haplotag's artifact) "
+                        "for external tools; the pipeline itself does not "
+                        "need them")
+    p.add_argument("--defer-unphased-frac", type=float, default=None,
+                   help="skip haplotype-model rescue at candidates whose "
+                        "covering reads are phased below this fraction "
+                        "(merge keeps the pileup call there); 0 = reference "
+                        "behavior. See MergeConfig.defer_unphased_frac")
+    p.add_argument("--depth-mode", default=None,
+                   choices=["column", "push"],
+                   help="s1 BAM depth-cap semantics: column = exact "
+                        "per-column cap; push = htslib bam_plp_push "
+                        "whole-read admission incl. the coverage-spike "
+                        "shadow (samtools --max-depth behavior). See "
+                        "PileupFeatureConfig.depth_mode")
+    p.add_argument("--num-hosts", type=int, default=None,
+                   help="multi-host: total process count (or NSP_NUM_PROCS); "
+                        "above 1 is not ported yet")
+    _add_device(p)
+
+    p = sub.add_parser("s1-features", help="mpileup -> pileup shards")
+    _add_common(p)
+    p.add_argument("--mpileup", help="whole-genome mpileup file")
+    p.add_argument("--mpileup-dir", help="per-contig mpileup directory")
+    p.add_argument("--ref", required=True)
+    p.add_argument("--contigs", nargs="*", default=None)
+
+    p = sub.add_parser("sort-vcf")
+    p.add_argument("--input", "-i", required=True)
+    p.add_argument("--output", "-o", required=True)
+
+    p = sub.add_parser(
+        "split-bam",
+        help="native BAM splitting (no samtools): per contig and/or by HP "
+             "tag into h1/h2 (reference DNA_SplitSam / split_bam_by_tag "
+             "roles). Outputs are unindexed BAMs.")
+    p.add_argument("--bam", required=True)
+    p.add_argument("--output", "-o", required=True, help="output directory")
+    p.add_argument("--contigs", nargs="*", default=None,
+                   help="write {contig}.bam per contig (default: all)")
+    p.add_argument("--by-tag", action="store_true",
+                   help="split into h1.bam/h2.bam by HP aux instead "
+                        "(untagged reads dropped)")
+
+    p = sub.add_parser("make-train-data",
+                       help="labeled pileup training arrays from BAM + truth")
+    _add_common(p)
+    p.add_argument("--bam", required=True)
+    p.add_argument("--ref", required=True)
+    p.add_argument("--truth-vcf", required=True)
+    p.add_argument("--bed", default=None, help="confident regions BED")
+    p.add_argument("--contigs", nargs="*", default=None)
+    p.add_argument("--max-nonvariant-ratio", type=float, default=5.0)
+    p.add_argument("--h5", action="store_true",
+                   help="reference-layout HDF5 train bins: not ported")
 
     p = sub.add_parser("s2-predict", help="pileup shards -> pileup.vcf")
     _add_common(p)
@@ -575,13 +991,56 @@ def main(argv=None) -> int:
     _add_legacy_parsers(sub)
 
     args = parser.parse_args(argv)
+
+    if args.cmd == "sort-vcf":
+        from ..decode.sort import sort_vcf_lines
+
+        with open(args.input) as f:
+            lines = sort_vcf_lines(f)
+        with open(args.output, "w") as f:
+            f.writelines(lines)
+        return 0
+
+    if args.cmd == "split-bam":
+        from ..io.bam import BamFile
+
+        os.makedirs(args.output, exist_ok=True)
+        with BamFile(args.bam) as bam:
+            if args.by_tag:
+                n = bam.split_by_tag(os.path.join(args.output, "h1.bam"),
+                                     os.path.join(args.output, "h2.bam"))
+                print({"records": n})
+            else:
+                contigs = args.contigs or [c for c, _ in bam.references()]
+                total = 0
+                for ctg in contigs:
+                    total += bam.write_tagged(
+                        os.path.join(args.output, f"{ctg}.bam"), {},
+                        contig=ctg)
+                print({"records": total, "contigs": len(contigs)})
+        return 0
+
     cfg = load_config(args.config)
     if args.threads:
         cfg.threads = args.threads
+    if getattr(args, "defer_unphased_frac", None) is not None:
+        cfg.merge.defer_unphased_frac = args.defer_unphased_frac
+    if getattr(args, "depth_mode", None) is not None:
+        cfg.pileup_feature.depth_mode = args.depth_mode
     if getattr(args, "device", None):
         resolve_device(args.device)      # no card: raise before any write
     os.makedirs(args.output, exist_ok=True)
 
+    if args.cmd == "call":
+        return _run_call(args, cfg)
+    if args.cmd == "make-train-data":
+        return _run_make_train_data(args, cfg)
+    if args.cmd == "s1-features":
+        m = stages.stage_pileup_features(
+            cfg, FastaReference(args.ref), _ensure_mpileup_dir(args, cfg),
+            os.path.join(args.output, "pileup_shards"), args.contigs)
+        print(m)
+        return 0
     if args.cmd == "train-pileup":
         return _run_train_pileup(args, cfg)
     if args.cmd == "train-haplotype":

@@ -5,6 +5,7 @@ CPU."""
 import ast
 import importlib
 import pathlib
+import sys
 
 import pytest
 import torch
@@ -51,10 +52,43 @@ def test_importing_every_module_builds_nothing(monkeypatch):
     def no_build(*a, **k):
         raise AssertionError("a kernel build started at import time")
 
+    from nanosnp_tpu_torch.io import native
+
     monkeypatch.setattr(build, "build_all", no_build)
+    monkeypatch.setattr(native, "_build", no_build)
     for path in _modules():
         rel = path.relative_to(PKG.parent).with_suffix("")
         importlib.import_module(".".join(rel.parts).replace(".__init__", ""))
+
+
+def test_host_stage_modules_are_under_the_scan():
+    names = {str(p.relative_to(PKG)) for p in _modules()}
+    assert {"io/native.py", "io/bam.py", "io/verify.py", "features/pileup.py",
+            "features/haplotype.py", "decode/sort.py",
+            "phase/native_phaser.py", "runtime/pipeline.py",
+            "runtime/extract.py", "runtime/external.py", "runtime/stages.py",
+            "runtime/cli.py", "utils/profiling.py", "ops/probe.py"} <= names
+
+
+# what chip_smoke.py may import besides the standard library: torch,
+# numpy, the port, and the numpy-only world generators of tests/
+SMOKE_ALLOWED = {"torch", "numpy", "nanosnp_tpu_torch", "synth", "bamgen",
+                 "diploid"}
+
+
+def test_chip_smoke_imports_only_torch_numpy_the_port_and_generators():
+    path = PKG.parent / "chip_smoke.py"
+    tree = ast.parse(path.read_text(), filename=str(path))
+    tops = {n.split(".")[0] for n in _imported_names(tree)}
+    assert "nanosnp_tpu_torch" in tops
+    bad = sorted(t for t in tops
+                 if t not in SMOKE_ALLOWED
+                 and t not in sys.stdlib_module_names)
+    assert not bad, f"chip_smoke.py imports {bad}"
+    for gen in ("synth", "bamgen", "diploid"):
+        gtree = ast.parse((PKG.parent / "tests" / f"{gen}.py").read_text())
+        gtops = {n.split(".")[0] for n in _imported_names(gtree)}
+        assert gtops <= {"numpy", "bamgen"} | sys.stdlib_module_names, gen
 
 
 def test_cuda_entry_points_raise_without_a_card(tmp_path):
