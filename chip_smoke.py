@@ -6,10 +6,14 @@
   setup    prints the card (nvidia-smi name and power limit), torch, CUDA
            and nvcc versions; builds the CUDA kernels from ops/csrc
            (nvcc) and the host BAM/mpileup engine from io/native (g++).
-  phase 1  holds each kernel against its plain PyTorch version at every
-           shape the main path gives it (N not a multiple of the batch
-           tile), then times kernel, plain version and cuDNN nn.LSTM
-           (a yardstick only: the port never calls it) at N=8192.
+  phase 1  the BiLSTM layer kernels at every layer call of the main path:
+           each shape's wrapper (`bilstm_stream` / `bilstm_center`) against
+           its plain PyTorch version at N=3001 and, at H=256, at N=1, 65
+           and 2558; the cluster path's in-projection and recurrence each
+           against its own plain version; then at N=8192 the wrapper, the
+           kernels alone (weights packed once), the plain version and cuDNN
+           nn.LSTM (a yardstick only: the port never calls it); a
+           `{"layers": [...]}` line.
   phase 1b holds the training recurrence kernels (forward, backward sweep,
            dW reduction) against their plain versions at the trainers'
            shapes (N not a multiple of the tiles), then times them beside
@@ -23,9 +27,11 @@
            without gradients and the training kernels with them.
   phase 1d the knock-out probe of the pileup model's first layer
            (ops/probe.py): each of its four modes against `probe_plain` at
-           N=8192, `full` also against `bilstm_stream`; then the probe's
-           entry point (`python -m nanosnp_tpu_torch.ops.probe`), and the
-           four times and three shares on a line of their own.
+           N=8192, `full` (the older design of the layer) also against
+           `bilstm_stream` within its tolerance and timed in turns with it;
+           then the probe's entry point (`python -m
+           nanosnp_tpu_torch.ops.probe`), and the four times and three
+           shares on a line of their own.
   phase 2  drives the serving slice through its entry points at full
            model width:
            s2-predict (CLI) on a 100k-candidate columnar shard with seeded
@@ -60,11 +66,12 @@
            `call --phaser native` on the calling contig with the shipped
            haplotype weights (s1 BAM pileup, s2, s3 native phaser, s4 read
            matrices, s5, s6). Every stage must write its marker, s3 phase
-           sites, s5 see sites, `bilstm_stream` and `bilstm_center` be
-           launched, merge.vcf have rows, and a second `call` on the same
-           output run no stage. Prints per-stage seconds and rates, het-SNP
-           recall and precision against the world's truth, and the card's
-           busy share of one more `call` under torch.profiler.
+           sites, s5 see sites, `bilstm_stream`, `bilstm_center`,
+           `bilstm_inproj` and `bilstm_cluster` be launched, merge.vcf
+           have rows, and a second `call` on the same output run no stage.
+           Prints per-stage seconds and rates, het-SNP recall and precision
+           against the world's truth, and the card's busy share of one more
+           `call` under torch.profiler.
 
 Prints a `{"kernels": [...]}` line, then as the last line
 `{"ok": true, "device": {...}}`. Exits non-zero on any failure, when no
@@ -92,10 +99,13 @@ PEAK_BYTES = 3.35e12
 SEED = 20261016
 N_CHECK = 3001          # not a multiple of either kernel tile (16 or 64)
 N_TIME = 8192           # the main path's batch
+N_RAGGED = (1, 65, 2558)  # more batch sizes off the tiles, at H=256
 STREAM_TOL = 1e-2       # bf16 output: two bf16 ulps near 1
 CENTER_TOL = 2e-3       # f32 output; the gap is f32 summation order
                         # carried through the bf16 rounding of h_{t-1}
 PROB_TOL = 1e-2         # model probabilities, card vs CPU plain versions
+INPROJ_TOL = 1e-4       # xp, over max(1, max|xp|): f32 sums of up to 512
+                        # bf16 products in another order (K eps = 3e-5)
 CONTIG_LEN = 3_000_000  # a few-Mbp contig at 30x ...
 N_CAND = 100_000        # ... gives ~100k candidates: 13 batches of 8192
 HAP_SITES = 8000        # haplotype sites in each of two depth buckets
@@ -174,6 +184,14 @@ REPLACES = {
     "bilstm_center": "nanosnp_tpu/ops/pallas_lstm.py:501 (_enc_center_kernel)"
                      ", nanosnp_tpu/ops/pallas_lstm.py:770 "
                      "(_enc_center_kfused_kernel)",
+    # at H=256 the two Pallas kernels' in-projection dot and their
+    # recurrence run as two kernels of the cluster path
+    "bilstm_inproj": "nanosnp_tpu/ops/pallas_lstm.py:469 (the in-projection"
+                     " of _enc_stream_kernel :423), :535 (of "
+                     "_enc_center_kernel :501)",
+    "bilstm_cluster": "nanosnp_tpu/ops/pallas_lstm.py:473 (the recurrence "
+                      "of _enc_stream_kernel :423), :539 (of "
+                      "_enc_center_kernel :501)",
     "lstm_recurrence_train": "nanosnp_tpu/ops/pallas_lstm.py:178 "
                              "(_train_kernel)",
     "lstm_recurrence_bwd": "nanosnp_tpu/ops/pallas_lstm.py:235 (_bwd_kernel)",
@@ -187,6 +205,7 @@ REPLACES = {
     "bilstm_probe": "scripts/kernel_probe.py:36 (_variant_kernel)",
 }
 SOURCES = {"bilstm_stream": "bilstm.cu", "bilstm_center": "bilstm.cu",
+           "bilstm_inproj": "bilstm.cu", "bilstm_cluster": "bilstm.cu",
            "lstm_recurrence_train": "lstm_train.cu",
            "lstm_recurrence_bwd": "lstm_train.cu",
            "lstm_dw_reduce": "lstm_train.cu",
@@ -224,6 +243,16 @@ DW_TOL = 1e-2
 
 
 def phase_kernels(dev):
+    """Phase 1: the BiLSTM layer kernels at every layer call of the main
+    path. Each shape through its wrapper against the plain version at
+    N_CHECK and, at H=256, at the ragged N_RAGGED; the cluster path's two
+    kernels each against its own plain version; then at N_TIME the wrapper
+    (which packs the weights every call), the kernels alone (weights packed
+    once, as a model does), the plain version and cuDNN nn.LSTM (a
+    yardstick only). At H=256 the wrapper's row times its two kernels
+    alone, summed, against the layer's bound; the two kernels' own rows
+    are bound by their own I/O, which counts xp's f32 round trip through
+    device memory that the layer's bound does not."""
     import torch
 
     from nanosnp_tpu_torch.ops import bilstm as K
@@ -242,43 +271,139 @@ def phase_kernels(dev):
                 u(2, hidden, 4 * hidden, scale=k).bfloat16(),
                 u(2, 4 * hidden, scale=2 * k))
 
-    rows = []
+    def bound(cost):
+        t_ops = cost[0] / PEAK_BF16_FLOPS * 1e3
+        t_bytes = cost[1] / PEAK_BYTES * 1e3
+        return dict(bound_ms=max(t_ops, t_bytes),
+                    bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+    rows, layers = [], []
     for label, name, seq_len, d_in, hidden in SHAPES:
+        center = name == "bilstm_center"
         kern = getattr(K, name)
         plain = getattr(K, name + "_plain")
+        tol = CENTER_TOL if center else STREAM_TOL
         # first layers see counts / statistics, inner layers h in (-1, 1)
         x_scale = 8.0 if d_in in (18, 105) else 1.0
-        args = inputs(N_CHECK, seq_len, d_in, hidden, x_scale)
-        got = kern(*args)
-        torch.cuda.synchronize()
-        want = plain(*args)
-        err = (got.float() - want.float()).abs().max().item()
-        tol = STREAM_TOL if name == "bilstm_stream" else CENTER_TOL
-        log(f"[check] {name:14s} {label:16s} N={N_CHECK} L={seq_len} "
-            f"D={d_in} H={hidden}: max|d|={err:.3e} (tol {tol})")
-        if not err <= tol:
-            raise AssertionError(f"{name} {label}: max|d| {err} > {tol}")
+        errs = []
+        for n in (N_CHECK,) + (N_RAGGED if hidden == 256 else ()):
+            args = inputs(n, seq_len, d_in, hidden, x_scale)
+            got = kern(*args)
+            torch.cuda.synchronize()
+            errs.append((got.float() - plain(*args).float()).abs().max()
+                        .item())
+            log(f"[check] {name:14s} {label:16s} N={n} L={seq_len} D={d_in} "
+                f"H={hidden}: max|d|={errs[-1]:.3e} (tol {tol})")
+            if not errs[-1] <= tol:
+                raise AssertionError(f"{name} {label} N={n}: max|d| "
+                                     f"{errs[-1]} > {tol}")
+        plan = K.plan_layer(N_TIME, seq_len, d_in, hidden, center)
+        out_dtype = torch.float32 if center else torch.bfloat16
+        if plan.path == "cluster":
+            # each kernel of the path against its own plain version
+            cplan = K.plan_layer(N_CHECK, seq_len, d_in, hidden, center)
+            args = inputs(N_CHECK, seq_len, d_in, hidden, x_scale)
+            xp = K.bilstm_inproj(*args, cplan)
+            torch.cuda.synchronize()
+            xp_want = K.bilstm_inproj_plain(args[0], args[1], args[3], cplan)
+            err_in, rel_in = _errs(xp, xp_want)
+            got = K.bilstm_cluster(xp_want, args[1], args[2], cplan,
+                                   out_dtype)
+            torch.cuda.synchronize()
+            err_rec = (got.float() - K.bilstm_cluster_plain(
+                xp_want, args[2], cplan, out_dtype).float()).abs().max().item()
+            log(f"[check] bilstm_inproj  {label:16s} N={N_CHECK}: max|d| "
+                f"over max(1, max|want|) {rel_in:.3e} (tol {INPROJ_TOL}); "
+                f"bilstm_cluster max|d| {err_rec:.3e} (tol {tol})")
+            if not (rel_in <= INPROJ_TOL and err_rec <= tol):
+                raise AssertionError(f"{label}: in-projection {rel_in} or "
+                                     f"recurrence {err_rec} off")
 
         args = inputs(N_TIME, seq_len, d_in, hidden, x_scale)
-        ms = cuda_time(lambda: kern(*args), 5)
+        packed = K.pack_weights(args[1], args[2])
+        wrapper_ms = cuda_time(lambda: kern(*args), 5)
+        ms = cuda_time(lambda: kern(*args, packed=packed), 10)
         plain_ms = cuda_time(lambda: plain(*args), 2)
         lstm = torch.nn.LSTM(d_in, hidden, batch_first=True,
                              bidirectional=True, device=dev,
                              dtype=torch.bfloat16)
         with torch.inference_mode():
             library_ms = cuda_time(lambda: lstm(args[0]), 5)
-        flop, nbytes = K.layer_cost(N_TIME, seq_len, d_in, hidden,
-                                    center=name == "bilstm_center")
-        t_ops = flop / PEAK_BF16_FLOPS * 1e3
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        rows.append(dict(
-            name=name, shape=label, L=seq_len, D=d_in, H=hidden,
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=max(t_ops, t_bytes),
-            bound_by="operations" if t_ops >= t_bytes else "bytes"))
-        log(f"[time]  {name:14s} {label:16s} N={N_TIME}: kernel {ms:.3f} ms"
-            f", plain {plain_ms:.3f} ms, cuDNN {library_ms:.3f} ms, bound "
-            f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']})")
+        layer = dict(
+            shape=label, wrapper=name, path=plan.path, cluster=plan.cluster,
+            bn=plan.bn, N=N_TIME, L=seq_len, D=d_in, H=hidden,
+            max_abs_err=max(errs), wrapper_ms=wrapper_ms, ms=ms,
+            plain_ms=plain_ms, library_ms=library_ms,
+            **bound(K.layer_cost(N_TIME, seq_len, d_in, hidden,
+                                 center=center)),
+            traffic_bytes=K.plan_traffic(plan))
+        if plan.path == "cluster":
+            layer["clusters_resident"] = K.cluster_occupancy(plan)
+            xp = K.bilstm_inproj(*args, plan, packed)
+            if center:
+                # the rows each direction runs, as the kernel projects them
+                xs = torch.stack([
+                    args[0][:, :plan.t0_count].reshape(-1, d_in),
+                    args[0][:, plan.t1_lo:].reshape(-1, d_in)])
+
+                def library():
+                    return torch.baddbmm(args[3][:, None], xs, args[1],
+                                         out_dtype=torch.float32)
+            else:
+                x2 = args[0].reshape(-1, d_in)
+                w_cat = args[1].permute(1, 0, 2).reshape(d_in, 8 * hidden)
+                b_cat = args[3].reshape(-1)
+
+                def library():
+                    return torch.addmm(b_cat, x2, w_cat,
+                                       out_dtype=torch.float32)
+            split_note = ("bound counts xp's f32 round trip through device "
+                          "memory, which the layer's bound does not")
+            rows.append(dict(
+                name="bilstm_inproj", shape=label, L=seq_len, D=d_in,
+                H=hidden, max_abs_err=err_in,
+                ms=cuda_time(lambda: K.bilstm_inproj(*args, plan, packed),
+                             10),
+                plain_ms=cuda_time(lambda: K.bilstm_inproj_plain(
+                    args[0], args[1], args[3], plan), 2),
+                # the same function as one library call: bf16 operands,
+                # f32 out plus bias, over the rows the kernel projects
+                library_ms=cuda_time(library, 10),
+                bound_note=split_note, **bound(K.inproj_cost(plan))))
+            rows.append(dict(
+                name="bilstm_cluster", shape=label, L=seq_len, D=d_in,
+                H=hidden, max_abs_err=err_rec,
+                ms=cuda_time(lambda: K.bilstm_cluster(
+                    xp, args[1], args[2], plan, out_dtype, packed), 10),
+                plain_ms=cuda_time(lambda: K.bilstm_cluster_plain(
+                    xp, args[2], plan, out_dtype), 2),
+                library_ms=None, bound_note=split_note,
+                **bound(K.cluster_cost(plan))))
+            layer["inproj_ms"] = rows[-2]["ms"]
+            layer["cluster_ms"] = rows[-1]["ms"]
+            layer["kernels_ms"] = rows[-2]["ms"] + rows[-1]["ms"]
+        # the layer's row: the fused kernel, or at H=256 the two kernels
+        # alone summed, against the layer's own bound
+        rows.append(dict(name=name, shape=label, L=seq_len, D=d_in,
+                         H=hidden, max_abs_err=max(errs),
+                         ms=layer.get("kernels_ms", ms),
+                         wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=layer["bound_ms"],
+                         bound_by=layer["bound_by"]))
+        layers.append(layer)
+        log(f"[time]  {name:14s} {label:16s} N={N_TIME} ({plan.path}, C="
+            f"{plan.cluster}, BN={plan.bn}): alone {ms:.3f} ms, wrapper "
+            f"{wrapper_ms:.3f} ms, plain {plain_ms:.3f} ms, cuDNN "
+            f"{library_ms:.3f} ms, bound {layer['bound_ms']:.4f} ms "
+            f"({layer['bound_by']})"
+            + (f"; in-projection {layer['inproj_ms']:.3f} ms + recurrence "
+               f"{layer['cluster_ms']:.3f} ms, "
+               f"{layer['clusters_resident']} clusters resident"
+               if plan.path == "cluster" else ""))
+        if plan.path == "cluster" and not rows[-1]["ms"] < library_ms:
+            log(f"[time]  {label}: the kernels alone are not faster than "
+                "cuDNN")
+    log(json.dumps({"layers": layers}))
     return rows
 
 
@@ -1298,12 +1423,33 @@ def phase_probe(dev):
         if not errs[mode] <= PROBE_TOL:
             raise AssertionError(f"bilstm_probe {mode}: max|d| {errs[mode]} "
                                  f"> {PROBE_TOL}")
+    # the probe keeps the older design of the layer (weights from L2
+    # every step, IEEE gate math); bilstm_stream's redesign sums and rounds in
+    # another order, so the two agree within the bf16 tolerance, not bit
+    # for bit
     same = (P.bilstm_probe(x, w_ih, w_hh, b, "full").float()
             - K.bilstm_stream(x, w_ih, w_hh, b,
                               torch.bfloat16).float()).abs().max().item()
-    log(f"[check] bilstm_probe   full against bilstm_stream: max|d|={same}")
-    if same != 0.0:
-        raise AssertionError("probe mode full is not bilstm_stream")
+    log(f"[check] bilstm_probe   full against bilstm_stream: max|d|={same} "
+        f"(tol {STREAM_TOL})")
+    if not same <= STREAM_TOL:
+        raise AssertionError("probe mode full disagrees with bilstm_stream")
+    # the older design (probe full) and the redesigned bilstm_stream, kernels
+    # alone (weights packed once), in turns: probe, stream, stream, probe
+    packed = K.pack_weights(w_ih, w_hh)
+    turns = []
+    for fn in ("probe", "stream", "stream", "probe"):
+        turns.append(cuda_time(
+            (lambda: P.bilstm_probe(x, w_ih, w_hh, b, "full", packed))
+            if fn == "probe" else
+            (lambda: K.bilstm_stream(x, w_ih, w_hh, b, torch.bfloat16,
+                                     packed)), PROBE_ITERS))
+    in_turns = {"probe_full_ms": (turns[0] + turns[3]) / 2,
+                "bilstm_stream_ms": (turns[1] + turns[2]) / 2,
+                "turns_ms": turns}
+    log(f"[time]  (33, 18, 64) in turns, kernels alone: probe full (older "
+        f"design) {in_turns['probe_full_ms']:.4f} ms, bilstm_stream "
+        f"{in_turns['bilstm_stream_ms']:.4f} ms {json.dumps(turns)}")
 
     # the kernel alone: weights packed once, CUDA events around the launches
     ms = P.time_modes(x, w_ih, w_hh, b, PROBE_ITERS)
@@ -1335,7 +1481,7 @@ def phase_probe(dev):
             f"{ms[mode]:.4f} ms, plain {plain_ms[mode]:.3f} ms, bound "
             f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']})")
     log(json.dumps({"probe": {"N": N_TIME, "iters": PROBE_ITERS, "ms": ms,
-                              "shares": P.shares(ms)}}))
+                              "shares": P.shares(ms), "in_turns": in_turns}}))
 
     # the entry point a user calls; its launches are the path's count
     K.reset_launch_counts()
@@ -1522,7 +1668,8 @@ def phase_call(dev):
     marks = _stage_markers(run)
     m = {st: marks[st]["metrics"] for st in CALL_STAGES}
     sec = {st: marks[st]["seconds"] for st in CALL_STAGES}
-    for name in ("bilstm_stream", "bilstm_center"):
+    for name in ("bilstm_stream", "bilstm_center", "bilstm_inproj",
+                 "bilstm_cluster"):
         if launches["call"][name] <= 0:
             raise AssertionError(f"call never launched {name}")
     if m["s2_pileup_predict"]["sites"] < CALL_MIN_CANDIDATES:
@@ -1764,8 +1911,9 @@ def main() -> int:
     log(f"[build] host engine (g++): {time.monotonic() - t0:.1f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"[build] {name}: {line.strip()}")
+            if any(w in line for w in ("entry function", "registers", "spill",
+                                       "error", "Performance")):
+                log(f"[build] {name}: {line.strip()[:160]}")
 
     t0 = time.monotonic()
     rows = phase_kernels(dev)

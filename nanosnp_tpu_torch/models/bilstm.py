@@ -36,7 +36,7 @@ from typing import Iterable, List, Mapping, Optional, Sequence
 import torch
 from torch import nn
 
-from ..ops.bilstm import bilstm_center, bilstm_stream
+from ..ops.bilstm import bilstm_center, bilstm_stream, pack_weights
 from ..ops.bilstm_fused import (bilstm2_center, bilstm_center_head,
                                 center_head_supported, head_plain,
                                 two_layer_supported)
@@ -57,11 +57,31 @@ class BiLSTMLayer(nn.Module):
         self.w_ih = _param(p["w_ih"])      # [2, D, 4H]
         self.w_hh = _param(p["w_hh"])      # [2, H, 4H]
         self.b = _param(p["b"])            # [2, 4H]
+        self._kernel_cache = None
 
     @property
     def hidden(self) -> int:
         return self.w_hh.shape[1]
 
+    def kernel_weights(self):
+        """(w_ih bf16, w_hh bf16, b f32, pack_weights of the two, or None
+        where H is not a multiple of 16, which no kernel takes): the
+        kernels' operands, made once and rebuilt only when a parameter
+        changed (its version counter, storage or device), as after an
+        optimizer step or `.to()`. A parameter made under
+        torch.inference_mode has no version counter and is never trained:
+        its storage identifies it."""
+        params = (self.w_ih, self.w_hh, self.b)
+        key = tuple((-1 if p.is_inference() else p._version, p.data_ptr(),
+                     p.device) for p in params)
+        if self._kernel_cache is None or self._kernel_cache[0] != key:
+            w_ih, w_hh = (p.detach().bfloat16().contiguous()
+                          for p in params[:2])
+            self._kernel_cache = (key, (
+                w_ih, w_hh, self.b.detach().float().contiguous(),
+                pack_weights(w_ih, w_hh) if self.hidden % 16 == 0
+                else None))
+        return self._kernel_cache[1]
 
     def tree(self) -> dict:
         return {"w_ih": self.w_ih, "w_hh": self.w_hh, "b": self.b}
@@ -126,11 +146,6 @@ def bilstm_encoder(layers: Iterable[BiLSTMLayer],
     return out
 
 
-def _kernel_weights(layer: BiLSTMLayer):
-    return (layer.w_ih.bfloat16().contiguous(),
-            layer.w_hh.bfloat16().contiguous(), layer.b.float().contiguous())
-
-
 def k_fusable(d_in: int, hidden: int) -> bool:
     """The JAX package's K-fusion test (in-projection and hidden
     contraction within one 128-deep tile). Here it only routes: a K-fusable
@@ -161,13 +176,13 @@ def bilstm_encoder_fused(layers: Iterable[BiLSTMLayer], x: torch.Tensor,
         l1, l2 = layers
         if (l2.hidden == l1.hidden and l2.w_ih.shape[1] == 2 * l1.hidden
                 and two_layer_supported(seq_len, d_in, l1.hidden)):
-            ctr = bilstm2_center(h, *_kernel_weights(l1),
-                                 *_kernel_weights(l2))
+            ctr = bilstm2_center(h, *l1.kernel_weights()[:3],
+                                 *l2.kernel_weights()[:3])
             return ctr if head is None else head_plain(ctr, head)
     hs = None
     for idx, layer in enumerate(layers):
         last = idx == len(layers) - 1
-        w_ih, w_hh, b = _kernel_weights(layer)
+        w_ih, w_hh, b, packed = layer.kernel_weights()
         if last and center_only and seq_len % 2 == 1:
             d_l, hidden = h.shape[2], layer.hidden
             if (head is not None and not k_fusable(d_l, hidden)
@@ -175,10 +190,10 @@ def bilstm_encoder_fused(layers: Iterable[BiLSTMLayer], x: torch.Tensor,
                                               head[0].shape[0],
                                               head[2].shape[0])):
                 return bilstm_center_head(h, w_ih, w_hh, b, head)
-            ctr = bilstm_center(h, w_ih, w_hh, b)
+            ctr = bilstm_center(h, w_ih, w_hh, b, packed)
             return ctr if head is None else head_plain(ctr, head)
         hs = bilstm_stream(h, w_ih, w_hh, b,
-                           torch.float32 if last else torch.bfloat16)
+                           torch.float32 if last else torch.bfloat16, packed)
         h = hs.bfloat16()
     if center_only:
         ctr = hs[:, seq_len // 2]

@@ -26,10 +26,21 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SOURCES: Dict[str, Dict[str, List]] = {
     "bilstm": {
-        # x, packed weights, b, out, out_f32, n, seq_len, d_in, hidden, stream
-        "nsp_bilstm_stream": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        # x, packed weights, b, out, n, seq_len, d_in, hidden, stream
-        "nsp_bilstm_center": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # x, packed weights, b, out, out_f32, n, seq_len, d_x, hidden, bn,
+        # smem, grid_x, stream
+        "nsp_bilstm_stream": [_P] * 4 + [_I] * 8 + [_P],
+        # x, packed weights, b, out, n, seq_len, d_x, hidden, bn, smem,
+        # grid_x, stream
+        "nsp_bilstm_center": [_P] * 4 + [_I] * 7 + [_P],
+        # x, packed weights, b, xp, n, seq_len, d_x, hidden, kp_tiles,
+        # n_pad, steps_t, t0_count, t1_lo, smem, grid x/y/z, stream
+        "nsp_bilstm_inproj": [_P] * 4 + [_I] * 13 + [_P],
+        # xp, packed weights, out, center, out_f32, n, seq_len, hidden,
+        # kp_tiles, w_kt0, n_pad, steps_t, t1_lo, cluster, bn, smem, grid_x,
+        # stream
+        "nsp_bilstm_cluster": [_P] * 3 + [_I] * 14 + [_P],
+        # cluster, bn, hidden, smem
+        "nsp_bilstm_cluster_occupancy": [_I] * 4,
     },
     "bilstm_probe": {
         # x, packed weights, b, out, mode, n, seq_len, d_in, hidden, stream

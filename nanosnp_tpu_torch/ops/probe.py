@@ -7,7 +7,12 @@ against each other says where a step's time sits. It replaces the Pallas
 kernel `_variant_kernel` (scripts/kernel_probe.py:36, launched by
 `_run_variant` :117); its CUDA kernel is `csrc/bilstm_probe.cu`.
 
-  full    exactly `bilstm_stream(..., out_dtype=bf16)`;
+  full    the layer `bilstm_stream(..., out_dtype=bf16)` computes, in the
+          older design of its kernel (weights re-read from L2 every step,
+          IEEE gate math), which this probe keeps: its plain version is
+          `bilstm_stream_plain`, and on the card it agrees with the
+          redesigned `bilstm_stream` within the bf16 tolerance, not bit
+          for bit;
   nogate  the gate transcendentals replaced by a linear combine,
           c = 0.5 c + 0.25 (g_i + g_f), h = 0.5 c + 0.125 (g_g + g_o):
           wrong math, same products and memory traffic;
