@@ -14,10 +14,14 @@
            kernels alone (weights packed once), the plain version and cuDNN
            nn.LSTM (a yardstick only: the port never calls it); a
            `{"layers": [...]}` line.
-  phase 1b holds the training recurrence kernels (forward, backward sweep,
-           dW reduction) against their plain versions at the trainers'
-           shapes (N not a multiple of the tiles), then times them beside
-           cuDNN nn.LSTM in training mode (a yardstick only).
+  phase 1b holds the training recurrence kernels of each shape's plan
+           (`plan_train`: w_hh in shared memory and dW summed in the sweep
+           at H=64, the packed kernels and `lstm_dw_reduce` at H=256) against
+           their plain versions at the trainers' shapes, at N off the tiles
+           and at N = 1 and 17, and the sweep's dW against
+           `lstm_dw_reduce_plain`, bit for bit the same on a second run;
+           then times them alone and through their wrappers beside cuDNN
+           nn.LSTM in training mode (a yardstick only).
   phase 1c holds the inference recurrence (f32 and bf16 xp, the CatModel
            and pileup shapes), the center + head kernel (24 and 96 head
            rows) and the two-layer kernel against their plain versions,
@@ -53,7 +57,8 @@
            on 40k labeled windows (batch 2000) and train-haplotype on 4k
            sites in depth buckets 64 and 96 with a truth VCF (batch 512),
            2 epochs each with validation. Launch counts are zeroed before
-           each and read after; losses must be finite, checkpoints written,
+           each and read after (train-pileup must launch no
+           `lstm_dw_reduce`); losses must be finite, checkpoints written,
            and the trained pileup checkpoint must load and predict. Then
            one full-width pileup step's gradients on the card are held
            against the plain versions on the CPU, and steady-state steps of
@@ -72,6 +77,11 @@
            Prints per-stage seconds and rates, het-SNP recall and precision
            against the world's truth, and the card's busy share of one more
            `call` under torch.profiler.
+
+`python3 chip_smoke.py --train-times TREE` times the training kernels
+alone and through their wrappers and profiles both trainers' steps, with
+the package of TREE; `--train-turns PARENT` does so for PARENT and this
+tree in turns, parent, change, change, parent.
 
 Prints a `{"kernels": [...]}` line, then as the last line
 `{"ok": true, "device": {...}}`. Exits non-zero on any failure, when no
@@ -194,9 +204,11 @@ REPLACES = {
                       "_enc_center_kernel :501)",
     "lstm_recurrence_train": "nanosnp_tpu/ops/pallas_lstm.py:178 "
                              "(_train_kernel)",
-    "lstm_recurrence_bwd": "nanosnp_tpu/ops/pallas_lstm.py:235 (_bwd_kernel)",
+    "lstm_recurrence_bwd": "nanosnp_tpu/ops/pallas_lstm.py:235 (_bwd_kernel"
+                           "; at H=64 its dW accumulation too)",
     "lstm_dw_reduce": "nanosnp_tpu/ops/pallas_lstm.py:291 (_bwd_kernel's dW "
-                      "accumulation) and :417 (its sum over batch tiles)",
+                      "accumulation) and :417 (its sum over batch tiles), "
+                      "at H=256",
     "lstm_recurrence_infer": "nanosnp_tpu/ops/pallas_lstm.py:64 (_kernel)",
     "bilstm_center_head": "nanosnp_tpu/ops/pallas_lstm.py:556 "
                           "(_enc_center_head_kernel)",
@@ -415,11 +427,15 @@ def _errs(got, want):
 
 
 def phase_train_kernels(dev):
-    """Phase 1b: the training recurrence kernels against their plain
-    versions, then timed beside cuDNN at the trainers' shapes."""
+    """Phase 1b: the training recurrence kernels of each shape's plan
+    (`plan_train`: smem at H=64, packed at H=256) against their plain
+    versions at N off the tiles and at N = 1 and 17 (fewer rows than a
+    tile), dW twice for the same bits; then timed alone (`_train_alone`)
+    and through the wrappers, beside cuDNN at the trainers' shapes."""
     import torch
 
     from nanosnp_tpu_torch.ops import lstm_train as T
+    from nanosnp_tpu_torch.ops.build import library
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
 
@@ -434,32 +450,53 @@ def phase_train_kernels(dev):
                 u(2, hidden, 4 * hidden, scale=k).bfloat16(),
                 u(n, seq_len, 2, hidden))
 
+    def bound(flop_f32, nbytes, flop_bf16=0):
+        t_ops = (flop_bf16 / PEAK_BF16_FLOPS + flop_f32 / PEAK_F32_FLOPS) * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes \
+            else "bytes"
+
     rows = []
     for label, n, seq_len, d_in, hidden in TRAIN_SHAPES:
-        # the check: N not a multiple of either kernel's batch tile
-        xp, w, g = inputs(n + 1, seq_len, hidden)
-        hs, cs = T.lstm_recurrence_train(xp, w)
-        dxp, _ = T.lstm_recurrence_bwd(xp, w, hs, cs, g, with_dw=False)
-        dw = T.lstm_dw_reduce(dxp, hs)
-        torch.cuda.synchronize()
-        hs_p, cs_p = T.lstm_recurrence_train_plain(xp, w)
-        dxp_p, _ = T.lstm_recurrence_bwd_plain(xp, w, hs, cs, g,
-                                               with_dw=False)
-        errs = {"lstm_recurrence_train": max(_errs(hs, hs_p),
-                                             _errs(cs, cs_p)),
-                "lstm_recurrence_bwd": _errs(dxp, dxp_p),
-                "lstm_dw_reduce": _errs(dw, T.lstm_dw_reduce_plain(dxp, hs))}
-        for name, (err, rel) in errs.items():
-            tol = DW_TOL if name == "lstm_dw_reduce" else TRAIN_TOL
-            log(f"[check] {name:21s} {label:26s} N={n + 1} L={seq_len} "
-                f"H={hidden}: max|d|={err:.3e}, over max(1, max|want|) "
-                f"{rel:.3e} (tol {tol})")
-            if not rel <= tol:
-                raise AssertionError(f"{name} {label}: {rel} > {tol}")
+        path = T.plan_train(n, seq_len, hidden).path
+        errs = {}
+        for n_check in (n + 1, 1, 17):
+            xp, w, g = inputs(n_check, seq_len, hidden)
+            hs, cs = T.lstm_recurrence_train(xp, w)
+            dxp, dw = T.lstm_recurrence_bwd(xp, w, hs, cs, g)
+            dxp_again, dw_again = T.lstm_recurrence_bwd(xp, w, hs, cs, g)
+            dw_sep = T.lstm_dw_reduce(dxp, hs)
+            torch.cuda.synchronize()
+            if not (torch.equal(dw, dw_again) and torch.equal(dxp,
+                                                               dxp_again)):
+                raise AssertionError(f"{label} N={n_check}: a second sweep "
+                                     "gave other bits")
+            hs_p, cs_p = T.lstm_recurrence_train_plain(xp, w)
+            dxp_p, _ = T.lstm_recurrence_bwd_plain(xp, w, hs, cs, g,
+                                                   with_dw=False)
+            dw_want = T.lstm_dw_reduce_plain(dxp, hs)
+            for name, (err, rel) in {
+                    "lstm_recurrence_train": max(_errs(hs, hs_p),
+                                                 _errs(cs, cs_p)),
+                    "lstm_recurrence_bwd": _errs(dxp, dxp_p),
+                    "lstm_recurrence_bwd dW": _errs(dw, dw_want),
+                    "lstm_dw_reduce": _errs(dw_sep, dw_want)}.items():
+                tol = TRAIN_TOL if name in ("lstm_recurrence_train",
+                                            "lstm_recurrence_bwd") \
+                    else DW_TOL
+                log(f"[check] {name:22s} {label:26s} ({path}) N={n_check} "
+                    f"L={seq_len} H={hidden}: max|d|={err:.3e}, over "
+                    f"max(1, max|want|) {rel:.3e} (tol {tol})")
+                if not rel <= tol:
+                    raise AssertionError(f"{name} {label} N={n_check}: "
+                                         f"{rel} > {tol}")
+                errs[name] = max(errs.get(name, 0.0), err)
 
         xp, w, g = inputs(n, seq_len, hidden)
         hs, cs = T.lstm_recurrence_train(xp, w)
         dxp, _ = T.lstm_recurrence_bwd(xp, w, hs, cs, g, with_dw=False)
+        _, alone = _train_alone(T, library("lstm_train"), xp, w, hs, cs, g,
+                                dxp)
         # cuDNN yardstick (never called by the port): bf16 nn.LSTM in
         # training mode, in-projection included; its backward alone is
         # timed by replaying autograd over one retained graph
@@ -479,39 +516,176 @@ def phase_train_kernels(dev):
                              hs[:, 1:, 1].reshape(-1, hidden).T])
         b_lib = torch.stack([dxp[:, 1:, 0].reshape(-1, 4 * hidden),
                              dxp[:, :-1, 1].reshape(-1, 4 * hidden)])
-        timed = {
-            "lstm_recurrence_train": (
-                lambda: T.lstm_recurrence_train(xp, w),
-                lambda: T.lstm_recurrence_train_plain(xp, w), lib_fwd,
-                T.train_cost(n, seq_len, hidden), PEAK_BF16_FLOPS),
-            "lstm_recurrence_bwd": (
-                lambda: T.lstm_recurrence_bwd(xp, w, hs, cs, g,
-                                              with_dw=False),
-                lambda: T.lstm_recurrence_bwd_plain(xp, w, hs, cs, g,
-                                                    with_dw=False),
-                lib_bwd, T.bwd_cost(n, seq_len, hidden), PEAK_BF16_FLOPS),
-            "lstm_dw_reduce": (
-                lambda: T.lstm_dw_reduce(dxp, hs),
-                lambda: T.lstm_dw_reduce_plain(dxp, hs),
-                cuda_time(lambda: torch.bmm(a_lib, b_lib), 10),
-                T.dw_cost(n, seq_len, hidden), PEAK_F32_FLOPS),
-        }
-        for name, (kern, plain, library_ms, (flop, nbytes), peak) in \
-                timed.items():
-            ms = cuda_time(kern, 10)
-            plain_ms = cuda_time(plain, 2)
-            t_ops = flop / peak * 1e3
-            t_bytes = nbytes / PEAK_BYTES * 1e3
+        flop_s, bytes_s = T.bwd_cost(n, seq_len, hidden)
+        flop_w, bytes_w = T.dw_cost(n, seq_len, hidden)
+        b_f, by_f = bound(0, T.train_cost(n, seq_len, hidden)[1],
+                          T.train_cost(n, seq_len, hidden)[0])
+        b_s, by_s = bound(0, bytes_s, flop_s)
+        b_w, by_w = bound(flop_w, bytes_w)
+        # sweep and dW as one function: the sweep's bytes and dW written
+        b_sw, _ = bound(flop_w, bytes_s + 2 * hidden * 4 * hidden * 2, flop_s)
+        timed = [
+            ("lstm_recurrence_train", alone["fwd"],
+             lambda: T.lstm_recurrence_train(xp, w),
+             lambda: T.lstm_recurrence_train_plain(xp, w), lib_fwd, b_f,
+             by_f, {}),
+            ("lstm_recurrence_bwd", alone["sweep"],
+             lambda: T.lstm_recurrence_bwd(xp, w, hs, cs, g, with_dw=False),
+             lambda: T.lstm_recurrence_bwd_plain(xp, w, hs, cs, g,
+                                                 with_dw=False),
+             lib_bwd, b_s, by_s, {
+                 "ms_with_dw": cuda_time(alone["sweep+dW"], 20),
+                 "wrapper_ms_with_dw": cuda_time(
+                     lambda: T.lstm_recurrence_bwd(xp, w, hs, cs, g), 20),
+                 "bound_ms_with_dw": b_sw,
+                 "max_abs_err_dw": errs["lstm_recurrence_bwd dW"]}),
+            ("lstm_dw_reduce", None, lambda: T.lstm_dw_reduce(dxp, hs),
+             lambda: T.lstm_dw_reduce_plain(dxp, hs),
+             cuda_time(lambda: torch.bmm(a_lib, b_lib), 10), b_w, by_w, {}),
+        ]
+        for name, alone_fn, kern, plain, library_ms, b_ms, b_by, extra in \
+                timed:
+            wrapper_ms = cuda_time(kern, 20)
+            # lstm_dw_reduce packs nothing: its wrapper is the kernel alone
+            ms = cuda_time(alone_fn, 20) if alone_fn else wrapper_ms
             rows.append(dict(
-                name=name, shape=label, N=n, L=seq_len, H=hidden,
-                max_abs_err=errs[name][0], ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes"))
-            log(f"[time]  {name:21s} {label:26s} N={n}: kernel {ms:.3f} ms, "
-                f"plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, "
-                f"bound {rows[-1]['bound_ms']:.4f} ms "
-                f"({rows[-1]['bound_by']})")
+                name=name, shape=label, path=path, N=n, L=seq_len, H=hidden,
+                max_abs_err=errs[name], ms=ms, wrapper_ms=wrapper_ms,
+                plain_ms=cuda_time(plain, 2), library_ms=library_ms,
+                bound_ms=b_ms, bound_by=b_by, **extra))
+            log(f"[time]  {name:21s} {label:26s} ({path}) N={n}: alone "
+                f"{ms:.3f} ms, wrapper {wrapper_ms:.3f} ms, plain "
+                f"{rows[-1]['plain_ms']:.3f} ms, library {library_ms:.3f} "
+                f"ms, bound {b_ms:.4f} ms ({b_by})"
+                + (f"; with dW alone {extra['ms_with_dw']:.3f} ms, wrapper "
+                   f"{extra['wrapper_ms_with_dw']:.3f} ms, bound "
+                   f"{extra['bound_ms_with_dw']:.4f} ms" if extra else ""))
     return rows
+
+
+def _train_alone(T, lib, xp, w, hs, cs, g, dxp):
+    """The training kernels of the package `T` was imported from, launched
+    with their outputs (and, on the packed path, the packed w_hh) made
+    beforehand: {"fwd", "sweep", "sweep+dW"} -> callable, and the path.
+    A tree without `plan_train` runs the packed kernels at every H (their
+    C interface is the same there)."""
+    import torch
+
+    n, seq_len, _, four_h = xp.shape
+    hidden = four_h // 4
+    stream = torch.cuda.current_stream(xp.device).cuda_stream
+    plan = T.plan_train(n, seq_len, hidden) if hasattr(T, "plan_train") \
+        else None
+    hs2, cs2, dxp2 = (torch.empty_like(t) for t in (hs, cs, dxp))
+    if plan is not None and plan.path == "smem":
+        part = torch.empty(plan.dw_tiles, 2, hidden, 4 * hidden,
+                           device=xp.device)
+        dw = torch.empty(2, hidden, 4 * hidden, dtype=torch.bfloat16,
+                         device=xp.device)
+
+        def bwd(with_dw):
+            return lambda: lib.nsp_lstm_bwd_smem(
+                xp.data_ptr(), w.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+                g.data_ptr(), dxp2.data_ptr(), part.data_ptr(), dw.data_ptr(),
+                with_dw, n, seq_len, hidden, plan.bn, plan.bwd_smem,
+                plan.grid[0], stream)
+
+        return "smem", {
+            "fwd": lambda: lib.nsp_lstm_fwd_smem(
+                xp.data_ptr(), w.data_ptr(), hs2.data_ptr(), cs2.data_ptr(),
+                n, seq_len, hidden, plan.bn, plan.fwd_smem, plan.grid[0],
+                stream),
+            "sweep": bwd(0), "sweep+dW": bwd(1)}
+    wpk_t = T.pack_a_fragments(w.transpose(1, 2))
+    wpk_h = T.pack_a_fragments(w)
+    splits = T.dw_splits(n, seq_len, hidden)
+    part = torch.empty(splits, 2, hidden, 4 * hidden, device=xp.device)
+    dw = torch.empty(2, hidden, 4 * hidden, dtype=torch.bfloat16,
+                     device=xp.device)
+
+    def sweep():
+        return lib.nsp_lstm_bwd(
+            xp.data_ptr(), wpk_t.data_ptr(), wpk_h.data_ptr(), hs.data_ptr(),
+            cs.data_ptr(), g.data_ptr(), dxp2.data_ptr(), n, seq_len, hidden,
+            stream)
+
+    def dw_only():
+        return lib.nsp_lstm_dw(dxp.data_ptr(), hs.data_ptr(), part.data_ptr(),
+                               dw.data_ptr(), n, seq_len, hidden, splits,
+                               stream)
+
+    return "packed", {
+        "fwd": lambda: lib.nsp_lstm_fwd(
+            xp.data_ptr(), wpk_t.data_ptr(), hs2.data_ptr(), cs2.data_ptr(),
+            n, seq_len, hidden, stream),
+        "sweep": sweep, "sweep+dW": lambda: (sweep(), dw_only())}
+
+
+def train_kernel_times(dev):
+    """The training recurrences at TRAIN_SHAPES, each alone (outputs and
+    packed weights made beforehand, `_train_alone`) and through its
+    wrapper, in the package on sys.path; then train-pileup's and
+    train-haplotype's steady-state steps (`profile_train_steps`). One
+    process a tree: `python3 chip_smoke.py --train-times TREE`."""
+    import numpy as np
+    import torch
+
+    from nanosnp_tpu_torch.ops import build
+    from nanosnp_tpu_torch.ops import lstm_train as T
+
+    build.build_all()
+    lib = build.library("lstm_train")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    out = {"kernels": []}
+    for label, n, seq_len, _, hidden in TRAIN_SHAPES:
+        k = 1.0 / math.sqrt(hidden)
+        xp = (torch.rand(n, seq_len, 2, 4 * hidden, generator=gen,
+                         device=dev) * 2 - 1) * 3.0
+        w = ((torch.rand(2, hidden, 4 * hidden, generator=gen, device=dev)
+              * 2 - 1) * k).bfloat16()
+        g = torch.rand(n, seq_len, 2, hidden, generator=gen, device=dev)
+        hs, cs = T.lstm_recurrence_train(xp, w)
+        dxp, _ = T.lstm_recurrence_bwd(xp, w, hs, cs, g, with_dw=False)
+        path, alone = _train_alone(T, lib, xp, w, hs, cs, g, dxp)
+        wrapped = {
+            "fwd": lambda: T.lstm_recurrence_train(xp, w),
+            "sweep": lambda: T.lstm_recurrence_bwd(xp, w, hs, cs, g,
+                                                   with_dw=False),
+            "sweep+dW": lambda: T.lstm_recurrence_bwd(xp, w, hs, cs, g),
+            "dw_reduce": lambda: T.lstm_dw_reduce(dxp, hs)}
+        row = dict(shape=label, N=n, L=seq_len, H=hidden, path=path)
+        for key, fn in alone.items():
+            row[key + " alone"] = cuda_time(fn, 20)
+        for key, fn in wrapped.items():
+            row[key + " wrapper"] = cuda_time(fn, 20)
+        out["kernels"].append(row)
+        log("[train-times] " + json.dumps(row))
+    arrays = _pileup_train_arrays(np.random.default_rng(SEED + 3), 2000)
+    out["profile"] = profile_train_steps(dev, arrays,
+                                         np.random.default_rng(SEED + 4))
+    return out
+
+
+def train_turns(parent):
+    """`python3 chip_smoke.py --train-turns PARENT`: `train_kernel_times`
+    of the tree at PARENT (a `git archive` of the parent commit) and of
+    this tree in turns, parent, change, change, parent, each in its own
+    process; returns their rows, which `main` prints as one JSON line."""
+    runs = []
+    for tree in (parent, ROOT, ROOT, parent):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--train-times",
+             os.path.abspath(tree)], capture_output=True, text=True)
+        sys.stdout.write(proc.stdout)
+        if proc.returncode != 0:
+            sys.stdout.write(proc.stderr[-4000:])
+            raise AssertionError(f"--train-times {tree}: exit "
+                                 f"{proc.returncode}")
+        line = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith('{"train_times"')][-1]
+        runs.append(dict(tree="parent" if tree == parent else "change",
+                         **json.loads(line)["train_times"]))
+    return runs
 
 
 def _pileup_columns(rng, seq):
@@ -1348,10 +1522,14 @@ def phase_train(dev):
                           final_val_loss=recs[-1]["loss"])
         log(f"[{name}] {dt:.3f} s, {steps} steps, launches {launches[name]}")
         log(f"[{name}] " + json.dumps(rows[name]))
-        for k in ("lstm_recurrence_train", "lstm_recurrence_bwd",
-                  "lstm_dw_reduce"):
+        for k in ("lstm_recurrence_train", "lstm_recurrence_bwd"):
             if launches[name][k] <= 0:
                 raise AssertionError(f"{name}: {k} was never launched")
+        # H=64 sums dW inside the sweep; H=256 runs the separate dW kernel
+        if (launches[name]["lstm_dw_reduce"] > 0) != (
+                name == "train-haplotype"):
+            raise AssertionError(f"{name}: lstm_dw_reduce launched "
+                                 f"{launches[name]['lstm_dw_reduce']} times")
 
     # the trained pileup checkpoint loads into the port's model and predicts
     params, _ = load_checkpoint(os.path.join(out, "pileup_train",
@@ -1878,11 +2056,33 @@ def check_probs(label, got, want):
             raise AssertionError(f"{label} {head}: card disagrees with CPU")
 
 
+def _card():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    args = sys.argv[1:]
+    if args and args[0] in ("--train-times", "--train-turns") \
+            and len(args) == 2:
+        log(_card())
+        if args[0] == "--train-turns":
+            log(json.dumps({"train_turns": train_turns(args[1])}))
+            return 0
+        sys.path[:0] = [os.path.abspath(args[1]), ROOT]
+        log(json.dumps({"train_times": train_kernel_times(
+            torch.device("cuda", 0))}))
+        return 0
+    if args:
+        print(f"chip_smoke: unknown arguments {args}", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
     # the numpy-only world generators beside the tests
@@ -1890,11 +2090,7 @@ def main() -> int:
     from nanosnp_tpu_torch.ops import bilstm as K
     from nanosnp_tpu_torch.ops import build
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    log(smi)
+    log(_card())
     nvcc = subprocess.run([build.nvcc_path(), "--version"],
                           capture_output=True, text=True, check=True)
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "

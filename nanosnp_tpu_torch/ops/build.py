@@ -64,6 +64,12 @@ SOURCES: Dict[str, Dict[str, List]] = {
         "nsp_lstm_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
         # dxp, hs, split scratch, dw, n, seq_len, hidden, splits, stream
         "nsp_lstm_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # the smem path: xp, w_hh, hs, cs, n, seq_len, hidden, bn, smem,
+        # grid_x, stream
+        "nsp_lstm_fwd_smem": [_P] * 4 + [_I] * 6 + [_P],
+        # xp, w_hh, hs, cs, g, dxp, dW partials, dw, with_dw, n, seq_len,
+        # hidden, bn, smem, grid_x, stream
+        "nsp_lstm_bwd_smem": [_P] * 8 + [_I] * 7 + [_P],
     },
 }
 

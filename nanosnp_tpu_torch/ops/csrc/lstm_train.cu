@@ -7,9 +7,12 @@
 // recurrence of training):
 //   nsp_lstm_infer <- _kernel       (no gradient wanted: streams h_t only,
 //                                    xp f32 or bf16)
-//   nsp_lstm_fwd  <- _train_kernel  (forward; streams h_t and c_t)
-//   nsp_lstm_bwd  <- _bwd_kernel    (reverse-time sweep: gates recomputed,
-//                                    dxp streamed, dh/dc carried)
+//   nsp_lstm_fwd_smem, nsp_lstm_fwd
+//                 <- _train_kernel  (forward; streams h_t and c_t)
+//   nsp_lstm_bwd_smem, nsp_lstm_bwd
+//                 <- _bwd_kernel    (reverse-time sweep: gates recomputed,
+//                                    dxp streamed, dh/dc carried; the smem
+//                                    one sums dW too)
 //   nsp_lstm_dw   <- the dW accumulation of _bwd_kernel (its VMEM sum over
 //                    batch tiles, then the wrapper's sum over tiles):
 //                    dW[d] = sum_{t,n} h_{t-1}[d, n, :]^T dxp[t, d, n, :]
@@ -27,7 +30,8 @@
 // to bf16 before W.h with f32 accumulation; gate and cell math f32; hs, cs
 // f32. Backward: gates recomputed from xp + W.bf16(h_{t-1}); dgates f32;
 // dh_{t-1} = W^T.bf16(dgates) with f32 accumulation; dc <- dc.f;
-// dW += dgates (x) h_{t-1} in f32 with f32 h_{t-1}, rounded to bf16 once,
+// dW += dgates (x) h_{t-1} in f32 with f32 h_{t-1} (on the smem path as
+// three bf16 products of the split operands, below), rounded to bf16 once,
 // after the whole sum.
 //
 // What bounds them on this card. Each step is a [4H, H] x [H, BN] product
@@ -35,27 +39,53 @@
 // before, L steps in a row. The f32 streams (xp in, hs and cs out; in the
 // backward xp, hs, cs, g in and dxp out) are the least traffic, and at the
 // training batch sizes they, not the operations, give the bound; so too
-// for the inference kernel, which moves xp in and hs out and nothing else. The
-// weights (w_hh^T: 512 KiB a direction at H=256) do not fit one SM's
-// shared memory, so every step re-reads them from L2, as bilstm.cu does;
-// at H=64 (32 KiB) they stay in L1. Design:
-//   - one block per (direction, tile of BN batch rows); one warp per 16
-//     hidden units, owning all four gate rows of those units, so the cell
-//     (forward and backward) runs on the mma accumulator registers with
-//     no exchange; the dh product's output lands on the same registers;
-//   - products on the tensor cores as mma.sync.m16n8k16 (bf16 in, f32
-//     accumulate) with A packed by the wrapper in fragment order (one
-//     coalesced 512-byte load per warp and tile): w_hh^T for the gates,
-//     w_hh for dh;
-//   - bf16 h_{t-1} (and in the backward bf16 dgates) sit in shared memory
-//     as the B operand, rows padded so fragment loads are conflict free;
-//   - xp, g, hs, cs are read straight into registers: each warp access is
-//     four full 32-byte sectors.
-//   - dW is its own kernel, an f32 SIMT product with a fixed split over the
-//     n*L rows and a second pass that sums the splits in order: no
-//     atomics, so the gradient is the same on every run.
-// Keeping the weights on chip across steps (thread-block clusters), wgmma,
-// TMA, and fusing dW into the sweep at H=64 are later work.
+// for the inference kernel, which moves xp in and hs out and nothing else.
+// Training takes one of two designs, picked per call by the wrapper's plan
+// (ops/lstm_train.plan_train), which the launchers check:
+//
+// 1. smem (nsp_lstm_fwd_smem, nsp_lstm_bwd_smem), H=64, the pileup model
+//    (the kernels are templates on H, built for 64): one block per
+//    (direction, 32 batch rows), so N=2000 is 126 blocks, one wave;
+//    2 x H/16 warps, warp w owning 16 hidden units with
+//    all four gate rows (the cell runs on the mma accumulator registers,
+//    and the dh product's output lands on them) for 16 of the rows.
+//    - w_hh [H, 4H] bf16 is copied into shared memory once a block, as the
+//      model holds it, rows padded for conflict-free ldmatrix: .trans gives
+//      w_hh^T's A fragments for the gates, the plain form w_hh's for dh, so
+//      the wrapper packs nothing. The forward keeps its A fragments in
+//      registers.
+//    - The next step's inputs arrive by cp.async while this step computes,
+//      double buffered: the forward's xp, the sweep's xp, g, h_{t-1} and
+//      c_{t-1} (c_t is the c_{t-1} a thread read the step before). The
+//      forward's bf16 h is double buffered too: one barrier a step. The
+//      sweep has two, since its dgates are exchanged within the step.
+//    - Gate math on the SFU (sigmoid4, tanh2: bilstm.cu's formulas and
+//      bound); the sweep forms the derivatives from those values.
+//    - The sweep rounds f32 h_{t-1} to bf16 as it builds the gates' B
+//      fragments from shared memory. The cell writes dgates there as bf16
+//      hi (their rounding, the dh product's B by ldmatrix) and lo (what hi
+//      leaves); dW reads both by transposed ldmatrix.
+//    - dW: each block sums h_{t-1}^T dgates over its rows and every step on
+//      the tensor cores, each f32 operand split into bf16 hi + lo, three
+//      products (hi hi, hi lo, lo hi) with f32 accumulation: within about
+//      2^-15 of each f32 product, against the 2^-8 of the bf16 dW returned.
+//      It writes its partial once; a second small launch sums the partials
+//      in tile order and rounds to bf16. Nothing is read back for dW, and
+//      there are no atomics: the gradient is the same on every run.
+// 2. packed (nsp_lstm_fwd, nsp_lstm_bwd, nsp_lstm_dw), H=256, the haplotype
+//    model: w_hh^T (512 KiB a direction) fits no SM, so every step re-reads
+//    it from L2:
+//    - one block per (direction, 32 or 16 batch rows), one warp per 16
+//      hidden units with all four gate rows;
+//    - mma.sync.m16n8k16 (bf16 in, f32 accumulate) with A packed by the
+//      wrapper in fragment order on every call (one coalesced 512-byte load
+//      per warp and tile): w_hh^T for the gates, w_hh for dh;
+//    - bf16 h_{t-1} (and in the backward bf16 dgates) in shared memory as
+//      the B operand; xp, g, hs, cs read straight into registers;
+//    - dW its own kernel, an f32 SIMT product over a fixed split of the n*L
+//      rows and a second pass that sums the splits in order.
+//    Keeping w_hh on chip there needs a thread-block cluster, as
+//    bilstm.cu's recurrence does: later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -419,6 +449,601 @@ __global__ void lstm_dw_sum_kernel(const float* __restrict__ part,
   dw[i] = __float2bfloat16_rn(s);
 }
 
+// ---------------------------------------------------------------------------
+// The smem path (H=64, the pileup model): w_hh in shared memory
+
+constexpr int kSmemMax = 232448;  // dynamic shared memory a block may use
+constexpr int kPlanError = -1;    // the plan does not match the shape
+constexpr int kTrainBN = 32;      // batch rows a block: two halves of 16
+constexpr int kSmemHidden = 64;   // the H the smem kernels are built for
+constexpr int kWPad = 8;          // bf16 pad of a w_hh row (ldmatrix)
+constexpr int kXpPad = 4;         // f32 pad of an xp row (accumulator loads)
+constexpr int kHPad = 8;          // f32 pad of an h_{t-1} row (8-byte loads)
+constexpr int kCPad = 4;          // f32 pad of a c_{t-1} or g row
+constexpr int kDgPad = 8;         // bf16 pad of a dgates row (ldmatrix)
+
+__device__ __forceinline__ float ex2_approx(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ float rcp_approx(float v) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// Gate math on the SFU, as csrc/bilstm.cu states and bounds it (sigmoid
+// within 1e-6, tanh within 2e-6 of the exact value; tests/
+// test_torch_bilstm_plan.py): sigmoid of four values for one reciprocal,
+// each clamped at -20 so the product of denominators stays finite
+__device__ __forceinline__ float sigmoid_den(float v) {
+  return 1.0f + ex2_approx(-1.4426950408889634f * fmaxf(v, -20.0f));
+}
+
+__device__ __forceinline__ void sigmoid4(float (&v)[4]) {
+  const float a = sigmoid_den(v[0]), b = sigmoid_den(v[1]);
+  const float c = sigmoid_den(v[2]), d = sigmoid_den(v[3]);
+  const float ab = a * b, cd = c * d;
+  const float r = rcp_approx(ab * cd);
+  const float r_ab = r * cd, r_cd = r * ab;
+  v[0] = b * r_ab;
+  v[1] = a * r_ab;
+  v[2] = d * r_cd;
+  v[3] = c * r_cd;
+}
+
+// tanh of two values, 2 sigmoid(2x) - 1, for one reciprocal
+__device__ __forceinline__ void tanh2(float& u, float& v) {
+  const float a = 1.0f + ex2_approx(-2.8853900817779268f * fmaxf(u, -20.0f));
+  const float b = 1.0f + ex2_approx(-2.8853900817779268f * fmaxf(v, -20.0f));
+  const float r = rcp_approx(a * b);
+  u = fmaf(2.0f, b * r, -1.0f);
+  v = fmaf(2.0f, a * r, -1.0f);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of 16 bytes; an invalid source reads nothing and fills zeros
+// (src-size 0), src must still be a mapped address
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// four 8x8 bf16 matrices, thread t giving the address of row t % 8 of
+// matrix t / 8; .trans hands each thread the transposed element pair
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const __nv_bfloat16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const __nv_bfloat16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// x, y as two bf16 pairs, hi = (x, y) rounded and lo = what hi leaves,
+// rounded: hi + lo is within 2^-16 of each value, relatively
+__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// two f32 as the bf16 pair of an mma operand register (lower k first)
+__device__ __forceinline__ uint32_t pack_bf16(float2 v) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(v.x, v.y);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// A fragments of w_hh^T (gate rows m0.., hidden units k0..) from w_hh
+// [H][ldw] in shared memory, read transposed: lanes 0-7 give rows k0..k0+7
+// at m0, lanes 8-15 the same rows at m0 + 8, lanes 16-31 rows k0 + 8..
+__device__ __forceinline__ void a_wt(uint32_t (&a)[4], const __nv_bfloat16* w,
+                                     int ldw, int m0, int k0, int lane) {
+  ldmatrix_x4_trans(a, w + (k0 + (lane & 7) + (lane >> 4) * 8) * ldw + m0 +
+                           ((lane >> 3) & 1) * 8);
+}
+
+// A fragments of w_hh (hidden units m0.., gate columns k0..), read as is
+__device__ __forceinline__ void a_w(uint32_t (&a)[4], const __nv_bfloat16* w,
+                                    int ldw, int m0, int k0, int lane) {
+  ldmatrix_x4(a, w + (m0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldw + k0 +
+                     (lane >> 4) * 8);
+}
+
+// w_hh[dir] [H, 4H] bf16 into shared memory rows of ldw, as 16-byte pieces
+template <int kH>
+__device__ __forceinline__ void copy_w(__nv_bfloat16* s_w,
+                                       const __nv_bfloat16* w, int tid,
+                                       int threads) {
+  constexpr int kPieces = 4 * kH / 8;  // a row
+  for (int i = tid; i < kH * kPieces; i += threads) {
+    const int r = i / kPieces, q = i - r * kPieces;
+    cp_async16(s_w + r * (4 * kH + kWPad) + q * 8, w + (size_t)r * 4 * kH +
+                                                       q * 8, true);
+  }
+}
+
+// rows [n0, n0 + kTrainBN) of src [n, L, 2, width] f32 at (t, dir) into
+// shared rows of ld floats; rows past n (or every row, valid false) zero
+template <int kWidth>
+__device__ __forceinline__ void fetch_rows(float* dst, int ld,
+                                           const float* src, int n, int n0,
+                                           int seq_len, int t, int dir,
+                                           bool valid, int tid, int threads) {
+  constexpr int kPieces = kWidth / 4;
+  for (int i = tid; i < kTrainBN * kPieces; i += threads) {
+    const int r = i / kPieces, q = i - r * kPieces;
+    const int row = n0 + r;
+    const bool ok = valid && row < n;
+    cp_async16(dst + r * ld + q * 4,
+               src + (((size_t)(ok ? row : 0) * seq_len + t) * 2 + dir) *
+                         kWidth + q * 4,
+               ok);
+  }
+}
+
+// Forward. xp [n, L, 2, 4H] f32; w_hh [2, H, 4H] bf16 (x @ w layout, as
+// the model holds it); hs, cs [n, L, 2, H] f32. grid (ceil(n/32), 2);
+// block 2 x H/16 warps: warp w owns hidden units 16 (w % (H/16)).. with all
+// four gates, for batch rows 16 (w / (H/16)).. of the tile. Shared: w_hh
+// [H][4H + 8] bf16, xp [2][32][4H + 4] f32, bf16 h [2][32][H + 8].
+template <int kH>
+__global__ void __launch_bounds__(kH / 16 * 64)
+lstm_fwd_smem_kernel(const float* __restrict__ xp,
+                     const __nv_bfloat16* __restrict__ w_hh,
+                     float* __restrict__ hs, float* __restrict__ cs, int n,
+                     int seq_len) {
+  constexpr int kUG = kH / 16;  // unit groups, and k-tiles of the product
+  constexpr int kThreads = kUG * 64;
+  constexpr int ldw = 4 * kH + kWPad;
+  constexpr int ldx = 4 * kH + kXpPad;
+  constexpr int ldh = kH + kRowPad;
+  extern __shared__ uint4 smem_u4[];
+  __nv_bfloat16* s_w = reinterpret_cast<__nv_bfloat16*>(smem_u4);
+  float* s_x = reinterpret_cast<float*>(s_w + kH * ldw);
+  __nv_bfloat16* s_h =
+      reinterpret_cast<__nv_bfloat16*>(s_x + 2 * kTrainBN * ldx);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int grp = lane >> 2;
+  const int tig = lane & 3;
+  const int ug = warp % kUG;
+  const int rw = (warp / kUG) * 16;  // the warp's first row in the tile
+  const int dir = blockIdx.y;
+  const int n0 = blockIdx.x * kTrainBN;
+  auto time_of = [&](int s) { return dir == 0 ? s : seq_len - 1 - s; };
+
+  copy_w<kH>(s_w, w_hh + (size_t)dir * kH * 4 * kH, tid, kThreads);
+  fetch_rows<4 * kH>(s_x, ldx, xp, n, n0, seq_len, time_of(0), dir, true,
+                     tid, kThreads);
+  cp_async_commit();
+  for (int i = tid; i < 2 * kTrainBN * ldh; i += kThreads)
+    s_h[i] = __float2bfloat16_rn(0.0f);  // h_{-1} = 0
+  cp_async_wait_all();
+  __syncthreads();
+
+  // w_hh^T's A fragments for the warp's gate rows, once, into registers
+  uint32_t a[4][kUG][4];
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int kt = 0; kt < kUG; ++kt)
+      a_wt(a[g][kt], s_w, ldw, g * kH + ug * 16, kt * 16, lane);
+  // this thread's ldmatrix row of h: n-tiles 0 and 1 of the warp's rows
+  const int h_row = (rw + (lane >> 4) * 8 + (lane & 7)) * ldh +
+                    ((lane >> 3) & 1) * 8;
+
+  float c[2][4];
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[nt][e] = 0.0f;
+
+  for (int s = 0; s < seq_len; ++s) {
+    const int t = time_of(s);
+    cp_async_wait_all();  // this thread's copies of xp_t
+    // every copy visible; h_{t-1} written; every read of step s-1 done
+    __syncthreads();
+    if (s + 1 < seq_len) {
+      fetch_rows<4 * kH>(s_x + ((s + 1) & 1) * kTrainBN * ldx, ldx, xp, n,
+                         n0, seq_len, time_of(s + 1), dir, true, tid,
+                         kThreads);
+      cp_async_commit();
+    }
+    const float* xs = s_x + (s & 1) * kTrainBN * ldx;
+    float acc[4][2][4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[g][nt][e] = xs[(rw + nt * 8 + 2 * tig + (e & 1)) * ldx +
+                             g * kH + ug * 16 + grp + (e < 2 ? 0 : 8)];
+    const __nv_bfloat16* hb = s_h + (s & 1) * kTrainBN * ldh + h_row;
+#pragma unroll
+    for (int kt = 0; kt < kUG; ++kt) {
+      uint32_t b[4];
+      ldmatrix_x4(b, hb + kt * 16);
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        mma_bf16(acc[g][0], a[g][kt], b[0], b[1]);
+        mma_bf16(acc[g][1], a[g][kt], b[2], b[3]);
+      }
+    }
+    __nv_bfloat16* h_next = s_h + ((s + 1) & 1) * kTrainBN * ldh;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      float h[4], og[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float g4[4] = {acc[0][nt][e], acc[1][nt][e], acc[3][nt][e],
+                       2.0f * acc[2][nt][e]};
+        sigmoid4(g4);  // sigmoid(i), sigmoid(f), sigmoid(o), sigmoid(2g)
+        c[nt][e] = g4[1] * c[nt][e] + g4[0] * fmaf(2.0f, g4[3], -1.0f);
+        og[e] = g4[2];
+        h[e] = c[nt][e];
+      }
+      tanh2(h[0], h[1]);
+      tanh2(h[2], h[3]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        h[e] *= og[e];
+        const int r = rw + nt * 8 + 2 * tig + (e & 1);
+        const int j = ug * 16 + grp + (e < 2 ? 0 : 8);
+        h_next[r * ldh + j] = __float2bfloat16_rn(h[e]);
+        if (n0 + r < n) {
+          const size_t o =
+              (((size_t)(n0 + r) * seq_len + t) * 2 + dir) * kH + j;
+          hs[o] = h[e];
+          cs[o] = c[nt][e];
+        }
+      }
+    }
+  }
+}
+
+// Reverse-time sweep with dW. Inputs as the forward's, plus hs, cs, g
+// [n, L, 2, H] f32; dxp [n, L, 2, 4H] f32; part [tiles, 2, H, 4H] f32, the
+// block's dW over its rows and every step (kDw). Warps as the forward's.
+// Shared: w_hh [H][4H + 8] bf16; per buffer (2): xp [32][4H + 4], h_{t-1}
+// [32][H + 8], c_{t-1} [32][H + 4], g [32][H + 4], all f32; dgates hi and lo
+// [2][32][4H + 8] bf16.
+template <int kH, bool kDw>
+__global__ void __launch_bounds__(kH / 16 * 64)
+lstm_bwd_smem_kernel(const float* __restrict__ xp,
+                     const __nv_bfloat16* __restrict__ w_hh,
+                     const float* __restrict__ hs,
+                     const float* __restrict__ cs,
+                     const float* __restrict__ g, float* __restrict__ dxp,
+                     float* __restrict__ part, int n, int seq_len) {
+  constexpr int kUG = kH / 16;
+  constexpr int kThreads = kUG * 64;
+  constexpr int ldw = 4 * kH + kWPad;
+  constexpr int ldx = 4 * kH + kXpPad;
+  constexpr int ldh = kH + kHPad;
+  constexpr int ldc = kH + kCPad;
+  constexpr int ldd = 4 * kH + kDgPad;
+  constexpr int kBuf = kTrainBN * (ldx + ldh + 2 * ldc);  // floats a buffer
+  extern __shared__ uint4 smem_u4[];
+  __nv_bfloat16* s_w = reinterpret_cast<__nv_bfloat16*>(smem_u4);
+  float* s_buf = reinterpret_cast<float*>(s_w + kH * ldw);
+  // dgates as bf16 hi (the rounding the dh product takes) and lo (what hi
+  // leaves, for dW), rows of ldd
+  __nv_bfloat16* s_dh = reinterpret_cast<__nv_bfloat16*>(s_buf + 2 * kBuf);
+  __nv_bfloat16* s_dl = s_dh + kTrainBN * ldd;
+  // buffer b: xp at s_buf + b kBuf, then h_{t-1}, c_{t-1}, g
+  auto s_xp = [&](int b) { return s_buf + b * kBuf; };
+  auto s_hp = [&](int b) { return s_buf + b * kBuf + kTrainBN * ldx; };
+  auto s_cp = [&](int b) { return s_hp(b) + kTrainBN * ldh; };
+  auto s_g = [&](int b) { return s_cp(b) + kTrainBN * ldc; };
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int grp = lane >> 2;
+  const int tig = lane & 3;
+  const int ug = warp % kUG;
+  const int rw = (warp / kUG) * 16;
+  const int dir = blockIdx.y;
+  const int n0 = blockIdx.x * kTrainBN;
+  auto time_of = [&](int s) { return dir == 0 ? s : seq_len - 1 - s; };
+
+  // iteration i runs the direction's step s = L-1-i: xp and g at its time,
+  // h and c of the step before (zero at s = 0)
+  auto fetch = [&](int i, int b) {
+    const int s = seq_len - 1 - i;
+    const int t = time_of(s);
+    const int tp = s > 0 ? time_of(s - 1) : t;
+    fetch_rows<4 * kH>(s_xp(b), ldx, xp, n, n0, seq_len, t, dir, true, tid,
+                       kThreads);
+    fetch_rows<kH>(s_g(b), ldc, g, n, n0, seq_len, t, dir, true, tid,
+                   kThreads);
+    fetch_rows<kH>(s_hp(b), ldh, hs, n, n0, seq_len, tp, dir, s > 0, tid,
+                   kThreads);
+    fetch_rows<kH>(s_cp(b), ldc, cs, n, n0, seq_len, tp, dir, s > 0, tid,
+                   kThreads);
+    cp_async_commit();
+  };
+
+  copy_w<kH>(s_w, w_hh + (size_t)dir * kH * 4 * kH, tid, kThreads);
+  fetch(0, 0);
+
+  // c_t of the first iteration from device memory; each later one is the
+  // c_{t-1} this thread read the iteration before
+  float ct[2][4], dh[2][4], dc[2][4];
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = n0 + rw + nt * 8 + 2 * tig + (e & 1);
+      const int j = ug * 16 + grp + (e < 2 ? 0 : 8);
+      ct[nt][e] = row < n ? cs[(((size_t)row * seq_len +
+                                  time_of(seq_len - 1)) * 2 + dir) * kH + j]
+                          : 0.0f;
+      dh[nt][e] = 0.0f;
+      dc[nt][e] = 0.0f;
+    }
+
+  // dW over the block's rows on the tensor cores: warp w computes units
+  // 16 (w % (H/16)).. by gate columns 2H (w / (H/16)).., H/4 n-tiles
+  constexpr int kDwNT = kH / 4;
+  const int kc0 = (warp / kUG) * 2 * kH;
+  // this thread's ldmatrix row of dgates for the dh product: n-tiles 0
+  // and 1 of the warp's rows
+  const int dg_row = (rw + (lane >> 4) * 8 + (lane & 7)) * ldd +
+                     ((lane >> 3) & 1) * 8;
+  float dw[kDw ? kDwNT : 1][4];
+  if constexpr (kDw) {
+#pragma unroll
+    for (int nn = 0; nn < kDwNT; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dw[nn][e] = 0.0f;
+  }
+
+  for (int i = 0; i < seq_len; ++i) {
+    const int s = seq_len - 1 - i;
+    const int t = time_of(s);
+    const int b = i & 1;
+    cp_async_wait_all();
+    // this iteration's inputs visible; every read of the last one done
+    __syncthreads();
+    if (i + 1 < seq_len) fetch(i + 1, b ^ 1);
+
+    // gates again: xp_t + w_hh^T . bf16(h_{t-1})
+    float acc[4][2][4];
+    const float* xs = s_xp(b);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[q][nt][e] = xs[(rw + nt * 8 + 2 * tig + (e & 1)) * ldx +
+                             q * kH + ug * 16 + grp + (e < 2 ? 0 : 8)];
+    const float* hp = s_hp(b);
+#pragma unroll
+    for (int kt = 0; kt < kUG; ++kt) {
+      uint32_t bf[2][2];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const float* p = hp + (rw + nt * 8 + grp) * ldh + kt * 16 + 2 * tig;
+        bf[nt][0] = pack_bf16(*reinterpret_cast<const float2*>(p));
+        bf[nt][1] = pack_bf16(*reinterpret_cast<const float2*>(p + 8));
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        uint32_t a[4];
+        a_wt(a, s_w, ldw, q * kH + ug * 16, kt * 16, lane);
+        mma_bf16(acc[q][0], a, bf[0][0], bf[0][1]);
+        mma_bf16(acc[q][1], a, bf[1][0], bf[1][1]);
+      }
+    }
+
+    // the cell backwards; dgates to dxp and to shared memory
+    const float* cp = s_cp(b);
+    const float* gp = s_g(b);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      float tc[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tc[e] = ct[nt][e];
+      tanh2(tc[0], tc[1]);
+      tanh2(tc[2], tc[3]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = rw + nt * 8 + 2 * tig + (e & 1);
+        const int j = ug * 16 + grp + (e < 2 ? 0 : 8);
+        const float c_prev = cp[r * ldc + j];
+        float g4[4] = {acc[0][nt][e], acc[1][nt][e], acc[3][nt][e],
+                       2.0f * acc[2][nt][e]};
+        sigmoid4(g4);
+        const float ig = g4[0], fg = g4[1], og = g4[2];
+        const float gg = fmaf(2.0f, g4[3], -1.0f);
+        const float dhv = gp[r * ldc + j] + dh[nt][e];
+        const float dcv = dhv * og * (1.0f - tc[e] * tc[e]) + dc[nt][e];
+        float dq[4];
+        dq[0] = dcv * gg * ig * (1.0f - ig);
+        dq[1] = dcv * c_prev * fg * (1.0f - fg);
+        dq[2] = dcv * ig * (1.0f - gg * gg);
+        dq[3] = dhv * tc[e] * og * (1.0f - og);
+        dc[nt][e] = dcv * fg;
+        ct[nt][e] = c_prev;
+        float* dst = dxp + (((size_t)(n0 + r) * seq_len + t) * 2 + dir) *
+                               4 * kH + j;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const __nv_bfloat16 hi = __float2bfloat16_rn(dq[q]);
+          s_dh[r * ldd + q * kH + j] = hi;
+          if constexpr (kDw)
+            s_dl[r * ldd + q * kH + j] =
+                __float2bfloat16_rn(dq[q] - __bfloat162float(hi));
+          if (n0 + r < n) dst[q * kH] = dq[q];
+        }
+      }
+    }
+    __syncthreads();  // all of dgates is in shared memory
+
+    // dh_{t-1} = w_hh . bf16(dgates) for the warp's units and rows
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dh[nt][e] = 0.0f;
+#pragma unroll 4
+    for (int kt = 0; kt < 4 * kUG; ++kt) {
+      uint32_t a[4];
+      a_w(a, s_w, ldw, ug * 16, kt * 16, lane);
+      uint32_t b[4];
+      ldmatrix_x4(b, s_dh + dg_row + kt * 16);
+      mma_bf16(dh[0], a, b[0], b[1]);
+      mma_bf16(dh[1], a, b[2], b[3]);
+    }
+
+    // dW += h_{t-1}^T dgates (f32 h_{t-1} and dgates, each split into
+    // bf16 hi + lo; h_{t-1} = 0 at s = 0)
+    if constexpr (kDw) {
+      if (s > 0) {
+#pragma unroll
+        for (int kt = 0; kt < kTrainBN / 16; ++kt) {
+          // A: h_{t-1}^T, units ug*16.. by rows kt*16..
+          const float* h0 = hp + (kt * 16 + 2 * tig) * ldh + ug * 16 + grp;
+          uint32_t ah[4], al[4];
+          split2(h0[0], h0[ldh], ah[0], al[0]);
+          split2(h0[8], h0[ldh + 8], ah[1], al[1]);
+          split2(h0[8 * ldh], h0[9 * ldh], ah[2], al[2]);
+          split2(h0[8 * ldh + 8], h0[9 * ldh + 8], ah[3], al[3]);
+          // B: dgates hi and lo, rows kt*16.. by the warp's gate columns,
+          // two n-tiles a transposed ldmatrix
+          const int d0 = (kt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldd +
+                         kc0 + (lane >> 4) * 8;
+#pragma unroll
+          for (int p = 0; p < kDwNT / 2; ++p) {
+            uint32_t bh[4], bl[4];
+            ldmatrix_x4_trans(bh, s_dh + d0 + p * 16);
+            ldmatrix_x4_trans(bl, s_dl + d0 + p * 16);
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              float (&acc_w)[4] = dw[2 * p + q];
+              mma_bf16(acc_w, ah, bh[2 * q], bh[2 * q + 1]);
+              mma_bf16(acc_w, ah, bl[2 * q], bl[2 * q + 1]);
+              mma_bf16(acc_w, al, bh[2 * q], bh[2 * q + 1]);
+            }
+          }
+        }
+      }
+    }
+    // No barrier here: the next iteration's first one comes before anyone
+    // writes dgates or refills this iteration's buffer.
+  }
+  if constexpr (kDw) {
+    float* out = part + ((size_t)blockIdx.x * 2 + dir) * kH * 4 * kH +
+                 (size_t)(ug * 16 + grp) * 4 * kH + kc0 + 2 * tig;
+#pragma unroll
+    for (int nn = 0; nn < kDwNT; ++nn) {
+      *reinterpret_cast<float2*>(out + nn * 8) =
+          make_float2(dw[nn][0], dw[nn][1]);
+      *reinterpret_cast<float2*>(out + 8 * 4 * kH + nn * 8) =
+          make_float2(dw[nn][2], dw[nn][3]);
+    }
+  }
+}
+
+int fwd_smem_bytes(int hidden) {
+  return hidden * (4 * hidden + kWPad) * 2 +
+         2 * kTrainBN * (4 * hidden + kXpPad) * 4 +
+         2 * kTrainBN * (hidden + kRowPad) * 2;
+}
+
+int bwd_smem_bytes(int hidden) {
+  return hidden * (4 * hidden + kWPad) * 2 +
+         2 * kTrainBN *
+             ((4 * hidden + kXpPad) + (hidden + kHPad) + 2 * (hidden + kCPad)) *
+             4 +
+         2 * kTrainBN * (4 * hidden + kDgPad) * 2;
+}
+
+bool smem_plan_ok(int n, int seq_len, int hidden, int bn, int grid_x) {
+  return n > 0 && seq_len > 0 && hidden == kSmemHidden && bn == kTrainBN &&
+         grid_x == (n + kTrainBN - 1) / kTrainBN;
+}
+
+template <int kH>
+int launch_fwd_smem(const void* xp, const void* w, void* hs, void* cs, int n,
+                    int seq_len, int smem, int grid_x, cudaStream_t stream) {
+  if (smem != fwd_smem_bytes(kH) || smem > kSmemMax) return kPlanError;
+  auto kernel = lstm_fwd_smem_kernel<kH>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(grid_x, 2), kH / 16 * 64, smem, stream>>>(
+      static_cast<const float*>(xp), static_cast<const __nv_bfloat16*>(w),
+      static_cast<float*>(hs), static_cast<float*>(cs), n, seq_len);
+  return (int)cudaGetLastError();
+}
+
+template <int kH, bool kDw>
+int launch_bwd_smem(const void* xp, const void* w, const void* hs,
+                    const void* cs, const void* g, void* dxp, void* part,
+                    void* dw, int n, int seq_len, int smem, int grid_x,
+                    cudaStream_t stream) {
+  if (smem != bwd_smem_bytes(kH) || smem > kSmemMax) return kPlanError;
+  auto kernel = lstm_bwd_smem_kernel<kH, kDw>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(grid_x, 2), kH / 16 * 64, smem, stream>>>(
+      static_cast<const float*>(xp), static_cast<const __nv_bfloat16*>(w),
+      static_cast<const float*>(hs), static_cast<const float*>(cs),
+      static_cast<const float*>(g), static_cast<float*>(dxp),
+      static_cast<float*>(part), n, seq_len);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !kDw) return (int)err;
+  // dW = bf16(the blocks' partials summed over tiles, in tile order)
+  const int size = 2 * kH * 4 * kH;
+  lstm_dw_sum_kernel<<<(size + 255) / 256, 256, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<__nv_bfloat16*>(dw), size,
+      grid_x);
+  return (int)cudaGetLastError();
+}
+
 bool bad_shape(int n, int seq_len, int hidden) {
   return n <= 0 || seq_len <= 0 || hidden <= 0 || hidden % 16 ||
          hidden > 16 * kMaxWarps;
@@ -507,4 +1132,34 @@ extern "C" int nsp_lstm_dw(const void* dxp, const void* hs, void* part,
       static_cast<const float*>(part), static_cast<__nv_bfloat16*>(dw),
       size, splits);
   return (int)cudaGetLastError();
+}
+
+// The smem path. w_hh [2, H, 4H] bf16 as the model holds it (no packing);
+// bn, smem and grid_x are the wrapper's plan (ops/lstm_train.plan_train),
+// checked here: kPlanError where it does not match the shape.
+extern "C" int nsp_lstm_fwd_smem(const void* xp, const void* w_hh, void* hs,
+                                 void* cs, int n, int seq_len, int hidden,
+                                 int bn, int smem, int grid_x, void* stream) {
+  if (!smem_plan_ok(n, seq_len, hidden, bn, grid_x)) return kPlanError;
+  return launch_fwd_smem<kSmemHidden>(xp, w_hh, hs, cs, n, seq_len, smem,
+                                      grid_x,
+                                      static_cast<cudaStream_t>(stream));
+}
+
+// part: scratch [grid_x, 2, H, 4H] f32 and dw [2, H, 4H] bf16, both unused
+// without with_dw
+extern "C" int nsp_lstm_bwd_smem(const void* xp, const void* w_hh,
+                                 const void* hs, const void* cs,
+                                 const void* g, void* dxp, void* part,
+                                 void* dw, int with_dw, int n, int seq_len,
+                                 int hidden, int bn, int smem, int grid_x,
+                                 void* stream) {
+  if (!smem_plan_ok(n, seq_len, hidden, bn, grid_x)) return kPlanError;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (with_dw)
+    return launch_bwd_smem<kSmemHidden, true>(xp, w_hh, hs, cs, g, dxp, part,
+                                              dw, n, seq_len, smem, grid_x,
+                                              st);
+  return launch_bwd_smem<kSmemHidden, false>(xp, w_hh, hs, cs, g, dxp, part,
+                                             dw, n, seq_len, smem, grid_x, st);
 }

@@ -13,11 +13,24 @@ of `bilstm_encoder_pallas`. Four wrappers around the CUDA kernels of
   lstm_recurrence_train  (xp, w_hh) -> (hs, cs). Replaces `_train_kernel`
                          (pallas_lstm.py:178).
   lstm_recurrence_bwd    (xp, w_hh, hs, cs, g) -> (dxp, dW_hh): the
-                         reverse-time sweep, then `lstm_dw_reduce`.
-                         Replaces `_bwd_kernel` (pallas_lstm.py:235).
+                         reverse-time sweep with its dW. Replaces
+                         `_bwd_kernel` (pallas_lstm.py:235).
   lstm_dw_reduce         (dxp, hs) -> dW_hh, the dW accumulation that
                          `_bwd_kernel` runs in its body (per batch tile, in
                          VMEM) and its wrapper sums over tiles.
+
+`plan_train(n, L, H)` picks the training kernels' path:
+
+  smem    H=64 (the pileup model): one block per (direction, 32 batch
+          rows) holds the direction's w_hh in shared memory, as the model
+          holds it (nothing is packed), prefetches the next step's
+          inputs, and the sweep sums the block's dW as it goes; one small
+          launch sums the blocks' partials in tile order.
+          `lstm_dw_reduce` is not run.
+  packed  every other H, the haplotype model's 256 among them (its w_hh
+          fits no block beside the buffers): w_hh packed in fragment
+          order on every call and re-read from L2 every step, dW by
+          `lstm_dw_reduce`.
 
 `lstm_recurrence(xp, w_hh)` takes the inference kernel when no gradient is
 wanted and the autograd op over the training kernels otherwise.
@@ -35,14 +48,65 @@ accumulation, and returns dW_hh as its f32 sum rounded to bf16. A wider
 w_hh (f32, or f64 for gradcheck) runs the plain versions without rounding.
 
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
-tensors it launches the kernel or raises. `LAUNCHES` (shared with
-ops/bilstm.py) counts kernel launches, never plain-version calls.
+tensors it launches the kernel of its plan or raises. `LAUNCHES` (shared
+with ops/bilstm.py) counts kernel launches, never plain-version calls.
 """
 from __future__ import annotations
 
+from typing import NamedTuple, Tuple
+
 import torch
 
-from .bilstm import LAUNCHES, pack_a_fragments
+from .bilstm import LAUNCHES, SMEM_MAX, pack_a_fragments
+
+# csrc/lstm_train.cu: the smem path's batch tile and the H it is built for
+TRAIN_BN = 32
+SMEM_HIDDEN = 64
+
+
+class TrainPlan(NamedTuple):
+    """How the training kernels run one call: `path` "smem" or "packed",
+    `bn` batch rows a block (the packed sweep's is half the forward's),
+    `grid` (blocks along N, directions), `fwd_smem` / `bwd_smem` bytes of
+    shared memory a block, `dw_tiles` partial dW sums added in order (the
+    smem sweep's batch tiles, or `lstm_dw_reduce`'s row splits)."""
+    path: str
+    bn: int
+    grid: Tuple[int, int]
+    fwd_smem: int
+    bwd_smem: int
+    dw_tiles: int
+
+
+def smem_bytes(hidden: int, bn: int = TRAIN_BN) -> Tuple[int, int]:
+    """Shared memory of the smem path's (forward, sweep) block: w_hh [H][4H
+    + 8] bf16 in both; the forward's xp [2][bn][4H + 4] f32 and bf16 h
+    [2][bn][H + 8]; the sweep's two buffers of xp, h_{t-1} [bn][H + 8],
+    c_{t-1} and g [bn][H + 4], all f32, and dgates as bf16 hi and lo
+    [2][bn][4H + 8] (csrc/lstm_train.cu fwd_smem_bytes, bwd_smem_bytes)."""
+    w = hidden * (4 * hidden + 8) * 2
+    return (w + 2 * bn * (4 * hidden + 4) * 4 + 2 * bn * (hidden + 8) * 2,
+            w + 2 * bn * ((4 * hidden + 4) + (hidden + 8)
+                          + 2 * (hidden + 4)) * 4
+            + 2 * bn * (4 * hidden + 8) * 2)
+
+
+def plan_train(n: int, seq_len: int, hidden: int) -> TrainPlan:
+    """The training kernels' plan for N rows, L steps, H units: the smem
+    path at the H its kernels are built for (64, the pileup model), where
+    a direction's w_hh and the sweep's buffers fit a block; else the
+    packed kernels. Raises ValueError for a shape no kernel takes."""
+    if n < 1 or seq_len < 1 or hidden < 16 or hidden % 16 or hidden > 256:
+        raise ValueError(f"no training kernel plan for N={n}, L={seq_len}, "
+                         f"H={hidden}: H must be a multiple of 16 up to 256")
+    fwd, bwd = smem_bytes(hidden)
+    if hidden == SMEM_HIDDEN and max(fwd, bwd) <= SMEM_MAX:
+        tiles = -(-n // TRAIN_BN)
+        return TrainPlan("smem", TRAIN_BN, (tiles, 2), fwd, bwd, tiles)
+    # the packed kernels (csrc/lstm_train.cu kFwdNT, kBwdNT, launch_fwd)
+    return TrainPlan("packed", 32, (-(-n // 32), 2), 32 * (hidden + 8) * 2,
+                     16 * (5 * hidden + 16) * 2,
+                     dw_splits(n, seq_len, hidden))
 
 
 def _check(xp, w_hh, *states) -> None:
@@ -173,13 +237,38 @@ def lstm_dw_reduce_plain(dxp, hs):
         for d in (0, 1)]).bfloat16()
 
 
+def lstm_dw_tiles_plain(dxp, hs, bn: int = TRAIN_BN):
+    """The smem sweep's dW partials: for each tile of `bn` batch rows, the
+    f32 sum over its rows and steps of h_{t-1}^T dgates, as
+    `lstm_dw_reduce_plain` sums them over all rows -> [tiles, 2, H, 4H]
+    (the JAX package's `dw_tiles`, [G, 2, 4H, H], in x @ w layout).
+    `sum_dw_tiles` gives the sweep's dW_hh."""
+    hidden = hs.shape[-1]
+    a = [hs[:, :-1, 0], hs[:, 1:, 1]]             # h_{t-1} of each step
+    b = [dxp[:, 1:, 0], dxp[:, :-1, 1]]
+    return torch.stack([torch.stack([
+        a[d][r0:r0 + bn].reshape(-1, hidden).T
+        @ b[d][r0:r0 + bn].reshape(-1, 4 * hidden) for d in (0, 1)])
+        for r0 in range(0, hs.shape[0], bn)])
+
+
+def sum_dw_tiles(tiles):
+    """dW_hh: the partials summed in tile order, rounded to bf16 once."""
+    total = tiles[0].clone()
+    for tile in tiles[1:]:
+        total += tile
+    return total.bfloat16()
+
+
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _raise_on(err, name, n, seq_len, hidden):
     if err:
-        raise RuntimeError(f"{name} launch failed: cudaError {err} "
+        why = "the launcher refused the plan" if err == -1 \
+            else f"cudaError {err}"
+        raise RuntimeError(f"{name} launch failed: {why} "
                            f"(N={n}, L={seq_len}, H={hidden})")
 
 
@@ -224,11 +313,19 @@ def lstm_recurrence_train(xp, w_hh):
                      device=xp.device)
     cs = torch.empty_like(hs)
     if n and seq_len:
-        wpk = pack_a_fragments(w_hh.transpose(1, 2))     # w_hh^T [2, 4H, H]
+        plan = plan_train(n, seq_len, hidden)
+        lib = library("lstm_train")
         with torch.cuda.device(xp.device):
-            err = library("lstm_train").nsp_lstm_fwd(
-                xp.data_ptr(), wpk.data_ptr(), hs.data_ptr(), cs.data_ptr(),
-                n, seq_len, hidden, _stream(xp))
+            if plan.path == "smem":
+                err = lib.nsp_lstm_fwd_smem(
+                    xp.data_ptr(), w_hh.data_ptr(), hs.data_ptr(),
+                    cs.data_ptr(), n, seq_len, hidden, plan.bn,
+                    plan.fwd_smem, plan.grid[0], _stream(xp))
+            else:
+                wpk = pack_a_fragments(w_hh.transpose(1, 2))  # w_hh^T
+                err = lib.nsp_lstm_fwd(
+                    xp.data_ptr(), wpk.data_ptr(), hs.data_ptr(),
+                    cs.data_ptr(), n, seq_len, hidden, _stream(xp))
         _raise_on(err, "lstm_recurrence_train", n, seq_len, hidden)
         LAUNCHES["lstm_recurrence_train"] += 1
     return hs, cs
@@ -236,7 +333,7 @@ def lstm_recurrence_train(xp, w_hh):
 
 def lstm_recurrence_bwd(xp, w_hh, hs, cs, g, with_dw: bool = True):
     """-> (dxp [N, L, 2, 4H] f32, dW_hh [2, H, 4H] in w_hh's dtype, or None
-    without with_dw)."""
+    without with_dw). On the smem path dW is summed inside the sweep."""
     _check(xp, w_hh, hs, cs, g)
     if xp.device.type == "cpu":
         return lstm_recurrence_bwd_plain(xp, w_hh, hs, cs, g, with_dw)
@@ -246,19 +343,35 @@ def lstm_recurrence_bwd(xp, w_hh, hs, cs, g, with_dw: bool = True):
     hidden = four_h // 4
     _check_kernel_inputs(hidden, (xp, hs, cs, g), (w_hh,))
     dxp = torch.empty_like(xp)
-    if n and seq_len:
-        wpk_t = pack_a_fragments(w_hh.transpose(1, 2))   # [2, 4H, H]
-        wpk_h = pack_a_fragments(w_hh)                   # [2, H, 4H]
-        with torch.cuda.device(xp.device):
-            err = library("lstm_train").nsp_lstm_bwd(
+    if not (n and seq_len):
+        return dxp, (torch.zeros_like(w_hh) if with_dw else None)
+    plan = plan_train(n, seq_len, hidden)
+    lib = library("lstm_train")
+    dw = None
+    with torch.cuda.device(xp.device):
+        if plan.path == "smem":
+            part = torch.empty((plan.dw_tiles, 2, hidden, four_h)
+                               if with_dw else (0,), dtype=torch.float32,
+                               device=xp.device)
+            dw = torch.empty(2, hidden, four_h, dtype=torch.bfloat16,
+                             device=xp.device) if with_dw else None
+            err = lib.nsp_lstm_bwd_smem(
+                xp.data_ptr(), w_hh.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+                g.data_ptr(), dxp.data_ptr(), part.data_ptr(),
+                dw.data_ptr() if with_dw else 0, int(with_dw), n, seq_len,
+                hidden, plan.bn, plan.bwd_smem, plan.grid[0], _stream(xp))
+        else:
+            wpk_t = pack_a_fragments(w_hh.transpose(1, 2))   # [2, 4H, H]
+            wpk_h = pack_a_fragments(w_hh)                   # [2, H, 4H]
+            err = lib.nsp_lstm_bwd(
                 xp.data_ptr(), wpk_t.data_ptr(), wpk_h.data_ptr(),
                 hs.data_ptr(), cs.data_ptr(), g.data_ptr(), dxp.data_ptr(),
                 n, seq_len, hidden, _stream(xp))
-        _raise_on(err, "lstm_recurrence_bwd", n, seq_len, hidden)
-        LAUNCHES["lstm_recurrence_bwd"] += 1
-    if not with_dw:
-        return dxp, None
-    return dxp, lstm_dw_reduce(dxp, hs)
+    _raise_on(err, "lstm_recurrence_bwd", n, seq_len, hidden)
+    LAUNCHES["lstm_recurrence_bwd"] += 1
+    if with_dw and plan.path == "packed":
+        dw = lstm_dw_reduce(dxp, hs)
+    return dxp, dw
 
 
 def dw_splits(n: int, seq_len: int, hidden: int) -> int:
