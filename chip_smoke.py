@@ -16,19 +16,22 @@
            `{"layers": [...]}` line.
   phase 1b holds the training recurrence kernels of each shape's plan
            (`plan_train`: w_hh in shared memory and dW summed in the sweep
-           at H=64, the packed kernels and `lstm_dw_reduce` at H=256) against
-           their plain versions at the trainers' shapes, at N off the tiles
-           and at N = 1 and 17, and the sweep's dW against
-           `lstm_dw_reduce_plain`, bit for bit the same on a second run;
-           then times them alone and through their wrappers beside cuDNN
-           nn.LSTM in training mode (a yardstick only).
+           at H=64; w_hh sliced over a 4-CTA cluster and `lstm_dw_reduce`
+           at H=256), and the packed kernels at H=128 (the path of every
+           other width), against their plain versions at the trainers'
+           shapes, at N off the tiles and at N = 1 and 17, and the sweep's
+           dW against `lstm_dw_reduce_plain`; dxp and dW bit for bit the
+           same on a second run; prints the cluster kernels' resident
+           clusters; then times them alone and through their wrappers
+           beside cuDNN nn.LSTM in training mode (a yardstick only).
   phase 1c holds the inference recurrence (f32 and bf16 xp, the CatModel
            and pileup shapes), the center + head kernel (24 and 96 head
            rows) and the two-layer kernel against their plain versions,
-           times them beside cuDNN nn.LSTM in inference mode (plus three
-           torch.matmul for the head; yardsticks only), and shows by the
-           launch counts that `lstm_recurrence` takes the inference kernel
-           without gradients and the training kernels with them.
+           times them alone (weights packed once beforehand) and through
+           their wrappers beside cuDNN nn.LSTM in inference mode (plus
+           three torch.matmul for the head; yardsticks only), and shows by
+           the launch counts that `lstm_recurrence` takes the inference
+           kernel without gradients and the training kernels with them.
   phase 1d the knock-out probe of the pileup model's first layer
            (ops/probe.py): each of its four modes against `probe_plain` at
            N=8192, `full` (the older design of the layer) also against
@@ -245,6 +248,9 @@ TRAIN_SHAPES = [
     ("haplotype pileup branch", 512, 33, 105, 256),
     ("haplotype haplotype branch", 512, 11, 105, 256),
 ]
+# a width no model of the repo trains at, so that the packed kernels (the
+# path of every H but 64 and 256) stay held against their plain versions
+PACKED_SHAPE = ("packed path, H=128", 512, 11, 105, 128)
 # f32 outputs, bf16 cast sites on both sides: the gap is summation order,
 # which can flip the bf16 rounding of an h_{t-1} or a dgate, carried
 # through the later steps; relative to the largest value
@@ -457,7 +463,13 @@ def phase_train_kernels(dev):
             else "bytes"
 
     rows = []
-    for label, n, seq_len, d_in, hidden in TRAIN_SHAPES:
+    resident = {"forward": T.cluster_occupancy(False),
+                "sweep": T.cluster_occupancy(True)}
+    log(f"[check] cluster_occupancy (4-CTA clusters resident at once): "
+        f"{json.dumps(resident)}")
+    if min(resident.values()) < 1:
+        raise AssertionError("no cluster of the training plan fits the card")
+    for label, n, seq_len, d_in, hidden in TRAIN_SHAPES + [PACKED_SHAPE]:
         path = T.plan_train(n, seq_len, hidden).path
         errs = {}
         for n_check in (n + 1, 1, 17):
@@ -469,6 +481,7 @@ def phase_train_kernels(dev):
             torch.cuda.synchronize()
             if not (torch.equal(dw, dw_again) and torch.equal(dxp,
                                                                dxp_again)):
+                # dxp: the cluster sweep's dh sum is in a fixed order too
                 raise AssertionError(f"{label} N={n_check}: a second sweep "
                                      "gave other bits")
             hs_p, cs_p = T.lstm_recurrence_train_plain(xp, w)
@@ -552,7 +565,9 @@ def phase_train_kernels(dev):
                 name=name, shape=label, path=path, N=n, L=seq_len, H=hidden,
                 max_abs_err=errs[name], ms=ms, wrapper_ms=wrapper_ms,
                 plain_ms=cuda_time(plain, 2), library_ms=library_ms,
-                bound_ms=b_ms, bound_by=b_by, **extra))
+                bound_ms=b_ms, bound_by=b_by, **extra,
+                **({"clusters_resident": resident} if path == "cluster"
+                   else {})))
             log(f"[time]  {name:21s} {label:26s} ({path}) N={n}: alone "
                 f"{ms:.3f} ms, wrapper {wrapper_ms:.3f} ms, plain "
                 f"{rows[-1]['plain_ms']:.3f} ms, library {library_ms:.3f} "
@@ -577,11 +592,11 @@ def _train_alone(T, lib, xp, w, hs, cs, g, dxp):
     plan = T.plan_train(n, seq_len, hidden) if hasattr(T, "plan_train") \
         else None
     hs2, cs2, dxp2 = (torch.empty_like(t) for t in (hs, cs, dxp))
+    dw = torch.empty(2, hidden, 4 * hidden, dtype=torch.bfloat16,
+                     device=xp.device)
     if plan is not None and plan.path == "smem":
         part = torch.empty(plan.dw_tiles, 2, hidden, 4 * hidden,
                            device=xp.device)
-        dw = torch.empty(2, hidden, 4 * hidden, dtype=torch.bfloat16,
-                         device=xp.device)
 
         def bwd(with_dw):
             return lambda: lib.nsp_lstm_bwd_smem(
@@ -596,23 +611,35 @@ def _train_alone(T, lib, xp, w, hs, cs, g, dxp):
                 n, seq_len, hidden, plan.bn, plan.fwd_smem, plan.grid[0],
                 stream),
             "sweep": bwd(0), "sweep+dW": bwd(1)}
-    wpk_t = T.pack_a_fragments(w.transpose(1, 2))
-    wpk_h = T.pack_a_fragments(w)
     splits = T.dw_splits(n, seq_len, hidden)
     part = torch.empty(splits, 2, hidden, 4 * hidden, device=xp.device)
-    dw = torch.empty(2, hidden, 4 * hidden, dtype=torch.bfloat16,
-                     device=xp.device)
+
+    def dw_only():
+        return lib.nsp_lstm_dw(dxp.data_ptr(), hs.data_ptr(), part.data_ptr(),
+                               dw.data_ptr(), n, seq_len, hidden, splits,
+                               stream)
+
+    if plan is not None and plan.path == "cluster":
+        def sweep():
+            return lib.nsp_lstm_bwd_cluster(
+                xp.data_ptr(), w.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+                g.data_ptr(), dxp2.data_ptr(), n, seq_len, hidden,
+                plan.cluster, plan.bn, plan.bwd_smem, plan.grid[0], stream)
+
+        return "cluster", {
+            "fwd": lambda: lib.nsp_lstm_fwd_cluster(
+                xp.data_ptr(), w.data_ptr(), hs2.data_ptr(), cs2.data_ptr(),
+                n, seq_len, hidden, plan.cluster, plan.bn, plan.fwd_smem,
+                plan.grid[0], stream),
+            "sweep": sweep, "sweep+dW": lambda: (sweep(), dw_only())}
+    wpk_t = T.pack_a_fragments(w.transpose(1, 2))
+    wpk_h = T.pack_a_fragments(w)
 
     def sweep():
         return lib.nsp_lstm_bwd(
             xp.data_ptr(), wpk_t.data_ptr(), wpk_h.data_ptr(), hs.data_ptr(),
             cs.data_ptr(), g.data_ptr(), dxp2.data_ptr(), n, seq_len, hidden,
             stream)
-
-    def dw_only():
-        return lib.nsp_lstm_dw(dxp.data_ptr(), hs.data_ptr(), part.data_ptr(),
-                               dw.data_ptr(), n, seq_len, hidden, splits,
-                               stream)
 
     return "packed", {
         "fwd": lambda: lib.nsp_lstm_fwd(
@@ -917,6 +944,7 @@ def phase_new_kernels(dev):
     from nanosnp_tpu_torch.ops import bilstm as K
     from nanosnp_tpu_torch.ops import bilstm_fused as F
     from nanosnp_tpu_torch.ops import lstm_train as T
+    from nanosnp_tpu_torch.ops.build import library
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
 
@@ -945,22 +973,31 @@ def phase_new_kernels(dev):
 
     rows = []
 
-    def record(name, label, err, tol, kern, plain, library_ms, cost, **dims):
+    def record(name, label, err, tol, kern, alone, plain, library_ms, cost,
+               **dims):
+        """kern: the wrapper, as a caller gets it (packing the weights on
+        every call); alone: the kernel's C entry point with the packed
+        weights and the output made beforehand."""
         if not err <= tol:
             raise AssertionError(f"{name} {label}: max|d| {err} > {tol}")
-        ms = cuda_time(kern, 10)
+        wrapper_ms = cuda_time(kern, 10)
+        ms = cuda_time(alone, 10)
         plain_ms = cuda_time(plain, 2)
         flop, nbytes = cost
         t_ops = flop / PEAK_BF16_FLOPS * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
         rows.append(dict(
             name=name, shape=label, **dims, max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, library_ms=library_ms,
+            wrapper_ms=wrapper_ms, plain_ms=plain_ms, library_ms=library_ms,
             bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes"))
-        log(f"[time]  {name:21s} {label:26s} N={N_TIME}: kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, bound "
-            f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']})")
+        log(f"[time]  {name:21s} {label:26s} N={N_TIME}: alone {ms:.3f} ms, "
+            f"wrapper {wrapper_ms:.3f} ms, plain {plain_ms:.3f} ms, library "
+            f"{library_ms:.3f} ms, bound {rows[-1]['bound_ms']:.4f} ms "
+            f"({rows[-1]['bound_by']})")
+
+    fused_lib = library("bilstm_fused")
+    stream = torch.cuda.current_stream(dev).cuda_stream
 
     # ---- lstm_recurrence_infer: f32 and bf16 xp
     for label, seq_len, d_lib, hidden in INFER_SHAPES:
@@ -976,8 +1013,14 @@ def phase_new_kernels(dev):
             log(f"[check] lstm_recurrence_infer {tag:30s} N={N_CHECK} "
                 f"L={seq_len} H={hidden}: max|d|={err:.3e} (tol {TRAIN_TOL})")
             xp = u(N_TIME, seq_len, 2, 4 * hidden, scale=3.0).to(xp_dtype)
+            wpk = K.pack_a_fragments(w.transpose(1, 2))
+            hs = torch.empty(N_TIME, seq_len, 2, hidden, device=dev)
             record("lstm_recurrence_infer", tag, err, TRAIN_TOL,
                    lambda: T.lstm_recurrence_infer(xp, w),
+                   lambda: library("lstm_train").nsp_lstm_infer(
+                       xp.data_ptr(), int(xp.dtype == torch.bfloat16),
+                       wpk.data_ptr(), hs.data_ptr(), N_TIME, seq_len, hidden,
+                       stream),
                    lambda: T.lstm_recurrence_infer_plain(xp, w), lib,
                    T.infer_cost(N_TIME, seq_len, hidden, xp.element_size()),
                    L=seq_len, H=hidden)
@@ -1007,8 +1050,22 @@ def phase_new_kernels(dev):
             feat = torch.tanh(feat @ wl[1] + head[3])
             return feat @ wl[2] + head[5]
 
+        r_dim = -(-n_rows // 16) * 16
+        packed = [K.pack_weights(lay[0], lay[1])] + [
+            K.pack_a_fragments(t[None]) for t in (
+                head[0], head[2],
+                torch.nn.functional.pad(head[4], (0, 0, 0, r_dim - n_rows)))]
+        bh_pad = torch.nn.functional.pad(head[5], (0, r_dim - n_rows))
+        out = torch.empty(N_TIME, n_rows, device=dev)
         record("bilstm_center_head", label, err, CENTER_TOL,
                lambda: F.bilstm_center_head(x, *lay, head),
+               lambda: fused_lib.nsp_bilstm_center_head(
+                   x.data_ptr(), packed[0].data_ptr(), lay[2].data_ptr(),
+                   packed[1].data_ptr(), head[1].data_ptr(),
+                   packed[2].data_ptr(), head[3].data_ptr(),
+                   packed[3].data_ptr(), bh_pad.data_ptr(), out.data_ptr(),
+                   N_TIME, seq_len, d_in, hidden, p_dim, q_dim, r_dim, n_rows,
+                   stream),
                lambda: F.bilstm_center_head_plain(x, *lay, head),
                cudnn_ms(d_in, hidden, seq_len, then=lib_head),
                F.center_head_cost(N_TIME, seq_len, d_in, hidden, p_dim,
@@ -1035,8 +1092,14 @@ def phase_new_kernels(dev):
         f"L={seq_len} D={d_in} H={hidden}: max|d|={err:.3e} "
         f"(tol {CENTER_TOL})")
     x = u(N_TIME, seq_len, d_in, scale=8.0).bfloat16()
+    wpk1, wpk2 = K.pack_weights(*l1[:2]), K.pack_weights(*l2[:2])
+    out = torch.empty(N_TIME, 2 * hidden, device=dev)
     record("bilstm2_center", "pileup encoder", err, CENTER_TOL,
            lambda: F.bilstm2_center(x, *l1, *l2),
+           lambda: fused_lib.nsp_bilstm2_center(
+               x.data_ptr(), wpk1.data_ptr(), l1[2].data_ptr(),
+               wpk2.data_ptr(), l2[2].data_ptr(), out.data_ptr(), N_TIME,
+               seq_len, d_in, hidden, stream),
            lambda: F.bilstm2_center_plain(x, *l1, *l2),
            cudnn_ms(d_in, hidden, seq_len, layers=2),
            F.two_layer_cost(N_TIME, seq_len, d_in, hidden),

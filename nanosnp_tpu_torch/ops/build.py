@@ -70,6 +70,14 @@ SOURCES: Dict[str, Dict[str, List]] = {
         # xp, w_hh, hs, cs, g, dxp, dW partials, dw, with_dw, n, seq_len,
         # hidden, bn, smem, grid_x, stream
         "nsp_lstm_bwd_smem": [_P] * 8 + [_I] * 7 + [_P],
+        # the cluster path: xp, w_hh, hs, cs, n, seq_len, hidden, cluster,
+        # bn, smem, grid_x, stream
+        "nsp_lstm_fwd_cluster": [_P] * 4 + [_I] * 7 + [_P],
+        # xp, w_hh, hs, cs, g, dxp, n, seq_len, hidden, cluster, bn, smem,
+        # grid_x, stream
+        "nsp_lstm_bwd_cluster": [_P] * 6 + [_I] * 7 + [_P],
+        # sweep, smem
+        "nsp_lstm_cluster_occupancy": [_I] * 2,
     },
 }
 

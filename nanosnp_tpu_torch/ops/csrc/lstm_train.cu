@@ -7,9 +7,9 @@
 // recurrence of training):
 //   nsp_lstm_infer <- _kernel       (no gradient wanted: streams h_t only,
 //                                    xp f32 or bf16)
-//   nsp_lstm_fwd_smem, nsp_lstm_fwd
+//   nsp_lstm_fwd_smem, nsp_lstm_fwd_cluster, nsp_lstm_fwd
 //                 <- _train_kernel  (forward; streams h_t and c_t)
-//   nsp_lstm_bwd_smem, nsp_lstm_bwd
+//   nsp_lstm_bwd_smem, nsp_lstm_bwd_cluster, nsp_lstm_bwd
 //                 <- _bwd_kernel    (reverse-time sweep: gates recomputed,
 //                                    dxp streamed, dh/dc carried; the smem
 //                                    one sums dW too)
@@ -40,8 +40,8 @@
 // backward xp, hs, cs, g in and dxp out) are the least traffic, and at the
 // training batch sizes they, not the operations, give the bound; so too
 // for the inference kernel, which moves xp in and hs out and nothing else.
-// Training takes one of two designs, picked per call by the wrapper's plan
-// (ops/lstm_train.plan_train), which the launchers check:
+// Training takes one of three designs, picked per call by the wrapper's
+// plan (ops/lstm_train.plan_train), which the launchers check:
 //
 // 1. smem (nsp_lstm_fwd_smem, nsp_lstm_bwd_smem), H=64, the pileup model
 //    (the kernels are templates on H, built for 64): one block per
@@ -72,9 +72,34 @@
 //      It writes its partial once; a second small launch sums the partials
 //      in tile order and rounds to bf16. Nothing is read back for dW, and
 //      there are no atomics: the gradient is the same on every run.
-// 2. packed (nsp_lstm_fwd, nsp_lstm_bwd, nsp_lstm_dw), H=256, the haplotype
-//    model: w_hh^T (512 KiB a direction) fits no SM, so every step re-reads
-//    it from L2:
+// 2. cluster (nsp_lstm_fwd_cluster, nsp_lstm_bwd_cluster, and
+//    nsp_lstm_dw), H=256, the haplotype model, whose w_hh (512 KiB a
+//    direction) fits no SM: a thread-block cluster of 4 CTAs per
+//    (direction, 64 batch rows), as bilstm.cu's recurrence; N=512 is 16
+//    clusters, one round of the 30 resident. CTA r holds the w_hh columns
+//    of its 64 units, all four gates (128 KiB), in shared memory for the
+//    whole call, copied from the model's layout (nothing packed); one copy
+//    serves both of the sweep's products as on the smem path.
+//    - Forward: xp of the thread's fragments read into registers a step
+//      ahead; each CTA's slice of bf16 h_t goes to every peer through
+//      distributed shared memory (two buffers by step parity, one cluster
+//      barrier a step).
+//    - Sweep: every CTA stages the whole bf16 h_{t-1} row from hs (no
+//      exchange) and forms dgates for its own gate columns K_r; its dh
+//      partial w_hh[:, K_r] . bf16(dgates_{K_r}) covers every unit, and is
+//      reduce-scattered through distributed shared memory: each CTA adds
+//      the four partials of its units in rank order, so dh is the same bits
+//      on every run. The shared tile of h_{t-1} takes dgates once the gate
+//      product has read it (the w slice and the partials' slots leave no
+//      room for two).
+//    - dW is nsp_lstm_dw's, as on the packed path.
+//    Bound: L dependent steps, each a chain of latencies (cluster barriers,
+//    shared-memory products, the DSMEM exchange) plus the step's own
+//    device-memory streams, which at the trainer's batch only 64 SMs pull:
+//    the sweep's xp, g, c_{t-1} and h_{t-1} in and dxp out, about 224 KiB
+//    a CTA a step (ops/step_stamps.py splits a step into its phases).
+// 3. packed (nsp_lstm_fwd, nsp_lstm_bwd, nsp_lstm_dw), any other H: w_hh^T
+//    re-read from L2 every step:
 //    - one block per (direction, 32 or 16 batch rows), one warp per 16
 //      hidden units with all four gate rows;
 //    - mma.sync.m16n8k16 (bf16 in, f32 accumulate) with A packed by the
@@ -84,14 +109,15 @@
 //      the B operand; xp, g, hs, cs read straight into registers;
 //    - dW its own kernel, an f32 SIMT product over a fixed split of the n*L
 //      rows and a second pass that sums the splits in order.
-//    Keeping w_hh on chip there needs a thread-block cluster, as
-//    bilstm.cu's recurrence does: later work.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -1067,6 +1093,588 @@ int launch_fwd(const void* xp, const void* wpk, void* hs, void* cs, int n,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The cluster path (H=256, the haplotype model): w_hh sliced over a cluster
+// of kClC CTAs, one cluster per (direction, kClBN batch rows). CTA r owns
+// units [r U, (r+1) U), U = H/C, with all four gates: its gate columns K_r
+// are {g H + r U + u : g < 4, u < U}, and its w_hh slice, every k row of
+// those columns, is copied into shared memory once, straight from the
+// model's w_hh [2, H, 4H] ([H][4U + 8] bf16). Warp w owns units (w % 4)
+// 16.. of the CTA's U for batch rows (w / 4) 32.., as the smem path's
+// warps do; one slice serves both of the sweep's products (ldmatrix.trans
+// for the gates' w_hh^T, plain ldmatrix for dh's w_hh).
+//
+// Within each group of 16 units the slice's rows and columns, and the
+// columns of the bf16 h tiles, are in the order perm: position p holds
+// unit 2 (p % 8) + p / 8. An mma accumulator's rows grp and grp + 8 are
+// then units 2 grp and 2 grp + 1, so a thread's two units of a fragment
+// are neighbours in device memory and its xp, hs, cs, g and dxp accesses
+// are 8-byte pairs, not single floats (scalar accesses, four rows a warp
+// instruction, made the loads' issue the longest part of a step).
+
+constexpr int kClH = 256;                 // the H the kernels are built for
+constexpr int kClC = 4;                   // CTAs a cluster
+constexpr int kClU = kClH / kClC;         // units a CTA
+constexpr int kClBN = 64;                 // batch rows a cluster
+constexpr int kClThreads = 256;           // 4 unit groups x 2 row halves
+constexpr int kClLdw = 4 * kClU + kWPad;  // a row of the w slice, bf16
+constexpr int kClLdh = kClH + kRowPad;    // a row of bf16 h (or dgates)
+constexpr int kNoCluster = -2;            // no cluster of the plan fits
+
+// the position of unit u in its group of 16
+__device__ __forceinline__ int inv_perm16(int u) {
+  return (u & ~15) | (((u & 1) << 3) + ((u & 15) >> 1));
+}
+
+// the cluster barrier in two halves: arrive publishes this thread's earlier
+// writes (shared memory of any CTA of the cluster), wait returns once every
+// thread of the cluster has arrived and sees their writes
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// CTA `rank`'s slice of w_hh[dir] [H, 4H] into shared memory: source row k
+// to row inv_perm16(k), gate g's unit rank U + u to column g U +
+// inv_perm16(u). Once a call: 16-byte loads, 2-byte stores.
+__device__ __forceinline__ void copy_w_slice(__nv_bfloat16* s_w,
+                                             const __nv_bfloat16* w,
+                                             int rank, int tid) {
+  constexpr int kPieces = 4 * kClU / 8;  // 8 units of one gate, a row
+  for (int i = tid; i < kClH * kPieces; i += kClThreads) {
+    const int k = i / kPieces, q = i - k * kPieces;
+    const int g = q / (kClU / 8), u0 = (q - g * (kClU / 8)) * 8;
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(
+        w + (size_t)k * 4 * kClH + g * kClH + rank * kClU + u0));
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+    __nv_bfloat16* row = s_w + inv_perm16(k) * kClLdw + g * kClU;
+#pragma unroll
+    for (int x = 0; x < 8; ++x) row[inv_perm16(u0 + x)] = e[x];
+  }
+}
+
+// acc[g][nt] += w_slice^T (gate g, the warp's units) . bf16 h (the warp's
+// 32 rows, every k); hb is this thread's ldmatrix row of the warp's rows in
+// a bf16 [kClBN][kClLdh] tile. per_kt(kt) runs before k-tile kt's products:
+// loads of device memory spread over the product so that they overlap it
+// (issued all at once, they stalled the warps for as long as the product
+// took).
+template <typename PerKt>
+__device__ __forceinline__ void cluster_gates(float (&acc)[4][4][4],
+                                              const __nv_bfloat16* s_w,
+                                              const __nv_bfloat16* hb, int ug,
+                                              int lane, PerKt&& per_kt) {
+#pragma unroll
+  for (int kt = 0; kt < kClH / 16; ++kt) {
+    per_kt(kt);
+    uint32_t b[2][4];
+    ldmatrix_x4(b[0], hb + kt * 16);
+    ldmatrix_x4(b[1], hb + 16 * kClLdh + kt * 16);
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      uint32_t a[4];
+      a_wt(a, s_w, kClLdw, g * kClU + ug * 16, kt * 16, lane);
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        mma_bf16(acc[g][2 * p], a, b[p][0], b[p][1]);
+        mma_bf16(acc[g][2 * p + 1], a, b[p][2], b[p][3]);
+      }
+    }
+  }
+}
+
+// Accumulator element e of n-tile nt holds batch row rw + nt 8 + 2 tig +
+// (e & 1) and the CTA's unit ug 16 + 2 grp + e / 2: elements e and e + 2
+// are one 8-byte pair of neighbouring units in device memory.
+
+// Forward. xp [n, L, 2, 4H] f32; w_hh [2, H, 4H] bf16; hs, cs [n, L, 2, H]
+// f32. grid (ceil(n / kClBN) kClC, 2), cluster (kClC, 1, 1). Shared: the w
+// slice, then bf16 h [2][kClBN][kClLdh] by step parity. Each step: xp of
+// this thread's fragments (loaded the step before) + w_slice^T . bf16
+// h_{t-1}, the cell in registers, hs and cs out, this CTA's slice of bf16
+// h_t into every peer's buffer through distributed shared memory, one
+// cluster barrier.
+__global__ void __launch_bounds__(kClThreads, 1)
+lstm_fwd_cluster_kernel(const float* __restrict__ xp,
+                        const __nv_bfloat16* __restrict__ w_hh,
+                        float* __restrict__ hs, float* __restrict__ cs, int n,
+                        int seq_len) {
+  extern __shared__ uint4 smem_u4[];
+  __nv_bfloat16* s_w = reinterpret_cast<__nv_bfloat16*>(smem_u4);
+  __nv_bfloat16* s_h = s_w + kClH * kClLdw;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int grp = lane >> 2;
+  const int tig = lane & 3;
+  const int ug = warp % 4;
+  const int rw = (warp / 4) * 32;  // the warp's first row in the tile
+  const int dir = blockIdx.y;
+  const int n0 = (blockIdx.x / kClC) * kClBN;
+  const int jc = rank * kClU + ug * 16 + grp;      // h tile column, e < 2
+  const int jg = rank * kClU + ug * 16 + 2 * grp;  // unit of the pair
+  auto time_of = [&](int s) { return dir == 0 ? s : seq_len - 1 - s; };
+
+  for (int i = tid; i < 2 * kClBN * kClLdh; i += kClThreads)
+    s_h[i] = __float2bfloat16_rn(0.0f);  // h_{-1} = 0
+  copy_w_slice(s_w, w_hh + (size_t)dir * kClH * 4 * kClH, rank, tid);
+
+  // pair li of xp at step s: gate li / 8, n-tile li / 2 % 4, elements
+  // li % 2 and li % 2 + 2; zero past n
+  auto load_xp = [&](int s, int li, float (&v)[4][4][4]) {
+    const int g = li / 8, nt = li / 2 % 4, par = li % 2;
+    const int row = n0 + rw + nt * 8 + 2 * tig + par;
+    const float2 x =
+        row < n ? __ldg(reinterpret_cast<const float2*>(
+                      xp + (((size_t)row * seq_len + time_of(s)) * 2 + dir) *
+                               4 * kClH + g * kClH + jg))
+                : make_float2(0.0f, 0.0f);
+    v[g][nt][par] = x.x;
+    v[g][nt][par + 2] = x.y;
+  };
+  float xcur[4][4][4];
+#pragma unroll
+  for (int li = 0; li < 32; ++li) load_xp(0, li, xcur);
+  float c[4][4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[nt][e] = 0.0f;
+  const int h_row = (rw + (lane >> 4) * 8 + (lane & 7)) * kClLdh +
+                    ((lane >> 3) & 1) * 8;
+  // the slice in and every CTA's h zeroed before any peer writes into it
+  cluster_arrive();
+
+  for (int s = 0; s < seq_len; ++s) {
+    const int t = time_of(s);
+    // h_{t-1} whole in every CTA; every read of the other buffer done
+    cluster_wait();
+    float acc[4][4][4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[g][nt][e] = xcur[g][nt][e];
+    // the next step's xp, two pairs a k-tile, in flight during the step
+    const bool more = s + 1 < seq_len;
+    cluster_gates(acc, s_w, s_h + (s & 1) * kClBN * kClLdh + h_row, ug, lane,
+                  [&](int kt) {
+                    if (more) {
+                      load_xp(s + 1, 2 * kt, xcur);
+                      load_xp(s + 1, 2 * kt + 1, xcur);
+                    }
+                  });
+    __nv_bfloat16* h_next = s_h + ((s + 1) & 1) * kClBN * kClLdh;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      float h[4], og[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float g4[4] = {acc[0][nt][e], acc[1][nt][e], acc[3][nt][e],
+                       2.0f * acc[2][nt][e]};
+        sigmoid4(g4);  // sigmoid(i), sigmoid(f), sigmoid(o), sigmoid(2g)
+        c[nt][e] = g4[1] * c[nt][e] + g4[0] * fmaf(2.0f, g4[3], -1.0f);
+        og[e] = g4[2];
+        h[e] = c[nt][e];
+      }
+      tanh2(h[0], h[1]);
+      tanh2(h[2], h[3]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        h[e] *= og[e];
+        h_next[(rw + nt * 8 + 2 * tig + (e & 1)) * kClLdh + jc +
+               (e < 2 ? 0 : 8)] = __float2bfloat16_rn(h[e]);
+      }
+#pragma unroll
+      for (int par = 0; par < 2; ++par) {
+        const int row = n0 + rw + nt * 8 + 2 * tig + par;
+        if (row < n) {
+          const size_t o =
+              (((size_t)row * seq_len + t) * 2 + dir) * kClH + jg;
+          *reinterpret_cast<float2*>(hs + o) = make_float2(h[par],
+                                                           h[par + 2]);
+          *reinterpret_cast<float2*>(cs + o) =
+              make_float2(c[nt][par], c[nt][par + 2]);
+        }
+      }
+    }
+    __syncthreads();  // this CTA's slice of h_t is whole ...
+    // ... and goes to every peer's buffer of the same parity: kClBN rows of
+    // U / 8 pieces of 16 bytes, two a thread
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int i = tid + q * kClThreads;
+      const int row = i / (kClU / 8);
+      __nv_bfloat16* src =
+          h_next + row * kClLdh + rank * kClU + (i - row * (kClU / 8)) * 8;
+      const uint4 v = *reinterpret_cast<const uint4*>(src);
+#pragma unroll
+      for (int p = 1; p < kClC; ++p)
+        *reinterpret_cast<uint4*>(
+            cluster.map_shared_rank(src, (rank + p) % kClC)) = v;
+    }
+    cluster_arrive();
+  }
+  cluster_wait();  // no peer still writes into this CTA's shared memory
+}
+
+// Reverse-time sweep, dW left to lstm_dw_reduce. Inputs as the forward's,
+// plus hs, cs, g [n, L, 2, H] f32; dxp [n, L, 2, 4H] f32. Grid and cluster
+// as the forward's. Shared: the w slice; one bf16 [kClBN][kClLdh] tile that
+// holds h_{t-1} for the gate product and then dgates (the slice's column
+// order) for the dh product; the peers' partial dh, [kClC - 1][8 warps][4
+// n-tiles][32 lanes] float4 (the receiving thread's accumulator fragments).
+// Each step:
+//   1. gates = xp + w_slice^T . bf16(h_{t-1}) (bf16 h_{t-1} staged from hs
+//      the step before: every CTA reads the whole row, no exchange);
+//   2. the cell backwards for this CTA's units: dgates to dxp (f32) and,
+//      bf16, to the shared tile; dc <- dc f;
+//   3. P_r = w_hh[:, K_r] . bf16(dgates_{K_r}), a partial of dh_{t-1} for
+//      every unit, f32 on the tensor cores: warp (ug, rows) computes units
+//      q U + ug 16.. for each CTA q, the very fragments that CTA q's warp
+//      (ug, rows) owns;
+//   4. reduce-scatter: P_r's part for CTA q into q's slot of rank r through
+//      distributed shared memory; CTA q adds the four partials in rank order
+//      0..3, its own from registers at its place, so dh is the same bits on
+//      every run. A split cluster barrier guards the slots: the writes wait
+//      for the peers' arrive after their sum, the sum for the writes.
+__global__ void __launch_bounds__(kClThreads, 1)
+lstm_bwd_cluster_kernel(const float* __restrict__ xp,
+                        const __nv_bfloat16* __restrict__ w_hh,
+                        const float* __restrict__ hs,
+                        const float* __restrict__ cs,
+                        const float* __restrict__ g, float* __restrict__ dxp,
+                        int n, int seq_len) {
+  extern __shared__ uint4 smem_u4[];
+  __nv_bfloat16* s_w = reinterpret_cast<__nv_bfloat16*>(smem_u4);
+  __nv_bfloat16* s_x = s_w + kClH * kClLdw;
+  float4* s_slot = reinterpret_cast<float4*>(s_x + kClBN * kClLdh);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int grp = lane >> 2;
+  const int tig = lane & 3;
+  const int ug = warp % 4;
+  const int rw = (warp / 4) * 32;
+  const int dir = blockIdx.y;
+  const int n0 = (blockIdx.x / kClC) * kClBN;
+  const int jl = ug * 16 + grp;  // the slice's column of e < 2; e >= 2: +8
+  const int jg = rank * kClU + ug * 16 + 2 * grp;  // unit of the pair
+  auto time_of = [&](int s) { return dir == 0 ? s : seq_len - 1 - s; };
+  // the slot of sender `from` in a receiver `to`'s shared memory
+  auto slot = [&](float4* base, int from, int to) {
+    return base + (((from < to ? from : from - 1) * 8 + warp) * 4) * 32 + lane;
+  };
+  // the pair of f32 values of (row, unit jg, jg + 1) at time t of src
+  // [n, L, 2, width]; zero past n
+  auto pair_at = [&](const float* src, int width, int row, int t,
+                     bool valid) {
+    return valid && row < n
+               ? __ldg(reinterpret_cast<const float2*>(
+                     src + (((size_t)row * seq_len + t) * 2 + dir) * width +
+                     jg))
+               : make_float2(0.0f, 0.0f);
+  };
+
+  // iteration i runs step s = L-1-i. h_{t-1} of iteration i as 16 float4
+  // a thread (piece k: row tid / 64 + 4 k), zero past n and at s = 0
+  auto load_h = [&](int i, int k, float4 (&v)[16]) {
+    const int s = seq_len - 1 - i;
+    const int tp = s > 0 ? time_of(s - 1) : 0;
+    const int idx = tid + k * kClThreads;
+    const int row = n0 + (idx >> 6);
+    v[k] = (s > 0 && row < n)
+               ? __ldg(reinterpret_cast<const float4*>(
+                           hs + (((size_t)row * seq_len + tp) * 2 + dir) *
+                                    kClH) +
+                       (idx & 63))
+               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  };
+  // into the tile as bf16, each unit at its column of the perm order
+  auto store_h = [&](const float4 (&v)[16]) {
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const int idx = tid + k * kClThreads;
+      __nv_bfloat16* row = s_x + (idx >> 6) * kClLdh;
+      const int u = (idx & 63) * 4;
+      row[inv_perm16(u)] = __float2bfloat16_rn(v[k].x);
+      row[inv_perm16(u + 1)] = __float2bfloat16_rn(v[k].y);
+      row[inv_perm16(u + 2)] = __float2bfloat16_rn(v[k].z);
+      row[inv_perm16(u + 3)] = __float2bfloat16_rn(v[k].w);
+    }
+  };
+  // the cell's inputs of iteration i at this thread's fragments, loaded
+  // during the iteration's gate product (held from the iteration before,
+  // they would spill): pair li of xp at t (gate li / 8, n-tile li / 2 % 4,
+  // elements li % 2 and li % 2 + 2), pair li of g at t and of c_{t-1} (zero
+  // at s = 0)
+  auto load_xp = [&](int i, int li, float (&x)[4][4][4]) {
+    const int q = li / 8, nt = li / 2 % 4, par = li % 2;
+    const float2 v = pair_at(xp + q * kClH, 4 * kClH,
+                             n0 + rw + nt * 8 + 2 * tig + par,
+                             time_of(seq_len - 1 - i), true);
+    x[q][nt][par] = v.x;
+    x[q][nt][par + 2] = v.y;
+  };
+  auto load_gc = [&](int i, int li, float (&gv)[4][4], float (&cp)[4][4]) {
+    const int s = seq_len - 1 - i;
+    const int nt = li / 2, par = li % 2;
+    const int row = n0 + rw + nt * 8 + 2 * tig + par;
+    const float2 a = pair_at(g, kClH, row, time_of(s), true);
+    const float2 b = pair_at(cs, kClH, row, s > 0 ? time_of(s - 1) : 0, s > 0);
+    gv[nt][par] = a.x;
+    gv[nt][par + 2] = a.y;
+    cp[nt][par] = b.x;
+    cp[nt][par + 2] = b.y;
+  };
+
+  copy_w_slice(s_w, w_hh + (size_t)dir * kClH * 4 * kClH, rank, tid);
+  float4 hv[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) load_h(0, k, hv);
+  store_h(hv);
+  // c_t of the first iteration from device memory; each later one is the
+  // c_{t-1} this thread read the iteration before
+  float ct[4][4], dh[4][4], dc[4][4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+    for (int par = 0; par < 2; ++par) {
+      const float2 v = pair_at(cs, kClH, n0 + rw + nt * 8 + 2 * tig + par,
+                               time_of(seq_len - 1), true);
+      ct[nt][par] = v.x;
+      ct[nt][par + 2] = v.y;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dh[nt][e] = 0.0f;
+      dc[nt][e] = 0.0f;
+    }
+  }
+  // this thread's ldmatrix row of the warp's rows of the shared tile
+  const int x_row = (rw + (lane >> 4) * 8 + (lane & 7)) * kClLdh +
+                    ((lane >> 3) & 1) * 8;
+  __syncthreads();  // the slice and bf16 h_{t-1} whole
+  cluster_arrive();  // this CTA runs: peers may write into its slots
+
+  for (int i = 0; i < seq_len; ++i) {
+    const int s = seq_len - 1 - i;
+    const int t = time_of(s);
+    float acc[4][4][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[q][nt][e] = 0.0f;
+    // the cell's inputs: g and c_{t-1} in k-tiles 0-3, xp in 4-11
+    float xin[4][4][4], gin[4][4], cin[4][4];
+    cluster_gates(acc, s_w, s_x + x_row, ug, lane, [&](int kt) {
+      if (kt < 4) {
+        load_gc(i, 2 * kt, gin, cin);
+        load_gc(i, 2 * kt + 1, gin, cin);
+      } else if (kt < 12) {
+#pragma unroll
+        for (int li = 4 * (kt - 4); li < 4 * (kt - 3); ++li)
+          load_xp(i, li, xin);
+      }
+    });
+    __syncthreads();  // every read of h_{t-1} done: the tile takes dgates
+
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      float tc[4], dq[4][4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tc[e] = ct[nt][e];
+      tanh2(tc[0], tc[1]);
+      tanh2(tc[2], tc[3]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = rw + nt * 8 + 2 * tig + (e & 1);
+        float g4[4] = {acc[0][nt][e] + xin[0][nt][e],
+                       acc[1][nt][e] + xin[1][nt][e],
+                       acc[3][nt][e] + xin[3][nt][e],
+                       2.0f * (acc[2][nt][e] + xin[2][nt][e])};
+        sigmoid4(g4);
+        const float ig = g4[0], fg = g4[1], og = g4[2];
+        const float gg = fmaf(2.0f, g4[3], -1.0f);
+        const float dhv = gin[nt][e] + dh[nt][e];
+        const float dcv = dhv * og * (1.0f - tc[e] * tc[e]) + dc[nt][e];
+        dq[e][0] = dcv * gg * ig * (1.0f - ig);
+        dq[e][1] = dcv * cin[nt][e] * fg * (1.0f - fg);
+        dq[e][2] = dcv * ig * (1.0f - gg * gg);
+        dq[e][3] = dhv * tc[e] * og * (1.0f - og);
+        dc[nt][e] = dcv * fg;
+        ct[nt][e] = cin[nt][e];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          s_x[r * kClLdh + q * kClU + jl + (e < 2 ? 0 : 8)] =
+              __float2bfloat16_rn(dq[e][q]);
+      }
+#pragma unroll
+      for (int par = 0; par < 2; ++par) {
+        const int row = n0 + rw + nt * 8 + 2 * tig + par;
+        if (row < n) {
+          float* dst =
+              dxp + (((size_t)row * seq_len + t) * 2 + dir) * 4 * kClH + jg;
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            *reinterpret_cast<float2*>(dst + q * kClH) =
+                make_float2(dq[par][q], dq[par + 2][q]);
+        }
+      }
+    }
+    if (i + 1 == seq_len) break;  // h_{-1} = 0: no dh_{t-1} to form
+    __syncthreads();  // all of bf16(dgates) is in the tile
+
+    // P_r for the units of every CTA q: p[q][nt][e] is unit q U + ug 16 +
+    // 2 grp + e / 2 (row ug 16 + grp (+8) of the slice), batch row rw +
+    // nt 8 + 2 tig + (e & 1)
+    float p[4][4][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[q][nt][e] = 0.0f;
+    // with the next h_{t-1}, a piece a k-tile, in flight during the
+    // product and the exchange
+#pragma unroll
+    for (int kt = 0; kt < 4 * kClU / 16; ++kt) {
+      load_h(i + 1, kt, hv);
+      uint32_t b[2][4];
+      ldmatrix_x4(b[0], s_x + x_row + kt * 16);
+      ldmatrix_x4(b[1], s_x + x_row + 16 * kClLdh + kt * 16);
+#pragma unroll
+      for (int q = 0; q < kClC; ++q) {
+        uint32_t a[4];
+        a_w(a, s_w, kClLdw, q * kClU + ug * 16, kt * 16, lane);
+#pragma unroll
+        for (int pp = 0; pp < 2; ++pp) {
+          mma_bf16(p[q][2 * pp], a, b[pp][0], b[pp][1]);
+          mma_bf16(p[q][2 * pp + 1], a, b[pp][2], b[pp][3]);
+        }
+      }
+    }
+
+    cluster_wait();  // every peer has read its slots (the last sum)
+    float4 keep[4];
+#pragma unroll
+    for (int q = 0; q < kClC; ++q)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const float4 v =
+            make_float4(p[q][nt][0], p[q][nt][1], p[q][nt][2], p[q][nt][3]);
+        if (q == rank)
+          keep[nt] = v;
+        else
+          *(cluster.map_shared_rank(slot(s_slot, rank, q), q) + nt * 32) = v;
+      }
+    cluster_arrive();  // this CTA's partials are out
+    cluster_wait();    // every partial is in; every read of dgates done
+    store_h(hv);
+    // dh_{t-1} of this CTA's units: the four partials in rank order
+#pragma unroll
+    for (int q = 0; q < kClC; ++q)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const float4 v = q == rank ? keep[nt] : slot(s_slot, q, rank)[nt * 32];
+        if (q == 0) {
+          dh[nt][0] = v.x;
+          dh[nt][1] = v.y;
+          dh[nt][2] = v.z;
+          dh[nt][3] = v.w;
+        } else {
+          dh[nt][0] += v.x;
+          dh[nt][1] += v.y;
+          dh[nt][2] += v.z;
+          dh[nt][3] += v.w;
+        }
+      }
+    cluster_arrive();  // this CTA's slots are read
+    __syncthreads();  // bf16 h_{t-1} whole
+  }
+  cluster_wait();  // no peer still writes into this CTA's shared memory
+}
+
+int fwd_cluster_bytes() {
+  return kClH * kClLdw * 2 + 2 * kClBN * kClLdh * 2;
+}
+
+int bwd_cluster_bytes() {
+  return kClH * kClLdw * 2 + kClBN * kClLdh * 2 +
+         (kClC - 1) * kClBN * kClU * 4;
+}
+
+bool cluster_plan_ok(int n, int seq_len, int hidden, int csize, int bn,
+                     int grid_x) {
+  return n > 0 && seq_len > 0 && hidden == kClH && csize == kClC &&
+         bn == kClBN && grid_x == (n + kClBN - 1) / kClBN * kClC;
+}
+
+cudaLaunchConfig_t cluster_config(int smem, int grid_x, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid_x, 2, 1);
+  cfg.blockDim = dim3(kClThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kClC;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// clusters of `kernel` at `smem` bytes the card holds at once, or a
+// negated cudaError
+template <typename Kernel>
+int cluster_occupancy(Kernel kernel, int smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config(smem, kClC, 0, attr);
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return -(int)err;
+  return clusters;
+}
+
+// the occupancy is asked once a process (a launch needs at least one
+// cluster resident; kNoCluster where none fits)
+template <typename Kernel, typename... Args>
+int launch_cluster(Kernel kernel, int& resident, int smem, int grid_x,
+                   cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (resident <= 0) {
+    const int got = cluster_occupancy(kernel, smem);
+    if (got < 0) return -got;
+    if (got == 0) return kNoCluster;
+    resident = got;
+  }
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config(smem, grid_x, stream, attr);
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+int g_fwd_resident = 0;
+int g_bwd_resident = 0;
+
 }  // namespace
 
 extern "C" int nsp_lstm_fwd(const void* xp, const void* wpk, void* hs,
@@ -1162,4 +1770,53 @@ extern "C" int nsp_lstm_bwd_smem(const void* xp, const void* w_hh,
                                               st);
   return launch_bwd_smem<kSmemHidden, false>(xp, w_hh, hs, cs, g, dxp, part,
                                              dw, n, seq_len, smem, grid_x, st);
+}
+
+// The cluster path. w_hh [2, H, 4H] bf16 as the model holds it; csize, bn,
+// smem and grid_x are the wrapper's plan (ops/lstm_train.plan_train),
+// checked here: kPlanError where it does not match the shape, kNoCluster
+// where no cluster of it fits the card.
+extern "C" int nsp_lstm_fwd_cluster(const void* xp, const void* w_hh,
+                                    void* hs, void* cs, int n, int seq_len,
+                                    int hidden, int csize, int bn, int smem,
+                                    int grid_x, void* stream) {
+  if (!cluster_plan_ok(n, seq_len, hidden, csize, bn, grid_x) ||
+      smem != fwd_cluster_bytes() || smem > kSmemMax)
+    return kPlanError;
+  return launch_cluster(lstm_fwd_cluster_kernel, g_fwd_resident, smem, grid_x,
+                        static_cast<cudaStream_t>(stream),
+                        static_cast<const float*>(xp),
+                        static_cast<const __nv_bfloat16*>(w_hh),
+                        static_cast<float*>(hs), static_cast<float*>(cs), n,
+                        seq_len);
+}
+
+// the sweep alone: dW is lstm_dw_reduce's (nsp_lstm_dw)
+extern "C" int nsp_lstm_bwd_cluster(const void* xp, const void* w_hh,
+                                    const void* hs, const void* cs,
+                                    const void* g, void* dxp, int n,
+                                    int seq_len, int hidden, int csize,
+                                    int bn, int smem, int grid_x,
+                                    void* stream) {
+  if (!cluster_plan_ok(n, seq_len, hidden, csize, bn, grid_x) ||
+      smem != bwd_cluster_bytes() || smem > kSmemMax)
+    return kPlanError;
+  return launch_cluster(lstm_bwd_cluster_kernel, g_bwd_resident, smem, grid_x,
+                        static_cast<cudaStream_t>(stream),
+                        static_cast<const float*>(xp),
+                        static_cast<const __nv_bfloat16*>(w_hh),
+                        static_cast<const float*>(hs),
+                        static_cast<const float*>(cs),
+                        static_cast<const float*>(g), static_cast<float*>(dxp),
+                        n, seq_len);
+}
+
+// clusters of the forward (sweep 0) or the sweep (1) the card holds at
+// once at the plan's shared memory, or < 0 (a negated cudaError, or
+// kPlanError for bytes that are not the kernel's)
+extern "C" int nsp_lstm_cluster_occupancy(int sweep, int smem) {
+  if (smem != (sweep ? bwd_cluster_bytes() : fwd_cluster_bytes()))
+    return kPlanError;
+  return sweep ? cluster_occupancy(lstm_bwd_cluster_kernel, smem)
+               : cluster_occupancy(lstm_fwd_cluster_kernel, smem);
 }

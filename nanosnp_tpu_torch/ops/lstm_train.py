@@ -21,16 +21,22 @@ of `bilstm_encoder_pallas`. Four wrappers around the CUDA kernels of
 
 `plan_train(n, L, H)` picks the training kernels' path:
 
-  smem    H=64 (the pileup model): one block per (direction, 32 batch
-          rows) holds the direction's w_hh in shared memory, as the model
-          holds it (nothing is packed), prefetches the next step's
-          inputs, and the sweep sums the block's dW as it goes; one small
-          launch sums the blocks' partials in tile order.
-          `lstm_dw_reduce` is not run.
-  packed  every other H, the haplotype model's 256 among them (its w_hh
-          fits no block beside the buffers): w_hh packed in fragment
-          order on every call and re-read from L2 every step, dW by
-          `lstm_dw_reduce`.
+  smem     H=64 (the pileup model): one block per (direction, 32 batch
+           rows) holds the direction's w_hh in shared memory, as the model
+           holds it (nothing is packed), prefetches the next step's
+           inputs, and the sweep sums the block's dW as it goes; one small
+           launch sums the blocks' partials in tile order.
+           `lstm_dw_reduce` is not run.
+  cluster  H=256 (the haplotype model), whose w_hh fits no block: a
+           cluster of C=4 CTAs per (direction, 64 batch rows), CTA r
+           holding the w_hh columns of its 64 units (all four gates) in
+           shared memory for the whole call, nothing packed. The forward
+           trades h_t through distributed shared memory; the sweep
+           reduce-scatters dh_{t-1} there, each CTA adding the four
+           partials in rank order (`lstm_recurrence_bwd_plain(...,
+           csize=4)` is that order). dW by `lstm_dw_reduce`.
+  packed   every other H: w_hh packed in fragment order on every call and
+           re-read from L2 every step, dW by `lstm_dw_reduce`.
 
 `lstm_recurrence(xp, w_hh)` takes the inference kernel when no gradient is
 wanted and the autograd op over the training kernels otherwise.
@@ -57,25 +63,35 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from .bilstm import LAUNCHES, SMEM_MAX, pack_a_fragments
+from .bilstm import CLUSTER, LAUNCHES, SMEM_MAX, pack_a_fragments
 
 # csrc/lstm_train.cu: the smem path's batch tile and the H it is built for
 TRAIN_BN = 32
 SMEM_HIDDEN = 64
+# the cluster path's H and its (C, BN), the layer recurrence's
+# (csrc/lstm_train.cu kClH, kClC, kClBN)
+CLUSTER_HIDDEN = 256
+# 4-CTA clusters of one CTA an SM resident at once on an H100
+# (cudaOccupancyMaxActiveClusters, PERF.md): a plan's clusters beyond
+# these run in a second round
+CLUSTERS_RESIDENT = 30
 
 
 class TrainPlan(NamedTuple):
-    """How the training kernels run one call: `path` "smem" or "packed",
-    `bn` batch rows a block (the packed sweep's is half the forward's),
-    `grid` (blocks along N, directions), `fwd_smem` / `bwd_smem` bytes of
-    shared memory a block, `dw_tiles` partial dW sums added in order (the
-    smem sweep's batch tiles, or `lstm_dw_reduce`'s row splits)."""
+    """How the training kernels run one call: `path` "smem", "cluster"
+    or "packed", `bn` batch rows a block (a cluster's on the cluster path;
+    the packed sweep's is half the forward's), `grid` (blocks along N,
+    directions), `fwd_smem` / `bwd_smem` bytes of shared memory a block,
+    `dw_tiles` partial dW sums added in order (the smem sweep's batch
+    tiles, or `lstm_dw_reduce`'s row splits), `cluster` CTAs a cluster
+    (1 off the cluster path)."""
     path: str
     bn: int
     grid: Tuple[int, int]
     fwd_smem: int
     bwd_smem: int
     dw_tiles: int
+    cluster: int = 1
 
 
 def smem_bytes(hidden: int, bn: int = TRAIN_BN) -> Tuple[int, int]:
@@ -91,11 +107,38 @@ def smem_bytes(hidden: int, bn: int = TRAIN_BN) -> Tuple[int, int]:
             + 2 * bn * (4 * hidden + 8) * 2)
 
 
+def cluster_smem_bytes(hidden: int = CLUSTER_HIDDEN, csize: int = CLUSTER[0],
+                       bn: int = CLUSTER[1]) -> Tuple[int, int]:
+    """Shared memory of the cluster path's (forward, sweep) CTA: the w_hh
+    slice [H][4H/C + 8] bf16 in both; the forward's bf16 h [2][bn][H + 8]
+    by step parity; the sweep's one bf16 [bn][H + 8] tile (h_{t-1}, then
+    dgates) and the C-1 peers' partial dh [bn][H/C] f32 (csrc/
+    lstm_train.cu fwd_cluster_bytes, bwd_cluster_bytes)."""
+    w = hidden * (4 * hidden // csize + 8) * 2
+    return (w + 2 * bn * (hidden + 8) * 2,
+            w + bn * (hidden + 8) * 2 + (csize - 1) * bn * (hidden // csize)
+            * 4)
+
+
+def cluster_gate_columns(hidden: int, csize: int, rank: int) -> torch.Tensor:
+    """The gate columns K_r of w_hh [H, 4H] that CTA `rank` of the cluster
+    path holds: gate g's run of the CTA's H/C units, g = i, f, g, o
+    (column g H + rank H/C + u at g H/C + u; the kernels keep each group
+    of 16 units in another order in shared memory, csrc/lstm_train.cu)."""
+    units = hidden // csize
+    return torch.cat([torch.arange(g * hidden + rank * units,
+                                   g * hidden + (rank + 1) * units)
+                      for g in range(4)])
+
+
 def plan_train(n: int, seq_len: int, hidden: int) -> TrainPlan:
     """The training kernels' plan for N rows, L steps, H units: the smem
     path at the H its kernels are built for (64, the pileup model), where
-    a direction's w_hh and the sweep's buffers fit a block; else the
-    packed kernels. Raises ValueError for a shape no kernel takes."""
+    a direction's w_hh and the sweep's buffers fit a block; the cluster
+    path at 256 (the haplotype model), at the layer recurrence's (C, BN),
+    whose 16 clusters at the trainer's batch of 512 run in one round
+    (BN 32 would need 32, beyond the 30 resident); else the packed
+    kernels. Raises ValueError for a shape no kernel takes."""
     if n < 1 or seq_len < 1 or hidden < 16 or hidden % 16 or hidden > 256:
         raise ValueError(f"no training kernel plan for N={n}, L={seq_len}, "
                          f"H={hidden}: H must be a multiple of 16 up to 256")
@@ -103,6 +146,11 @@ def plan_train(n: int, seq_len: int, hidden: int) -> TrainPlan:
     if hidden == SMEM_HIDDEN and max(fwd, bwd) <= SMEM_MAX:
         tiles = -(-n // TRAIN_BN)
         return TrainPlan("smem", TRAIN_BN, (tiles, 2), fwd, bwd, tiles)
+    if hidden == CLUSTER_HIDDEN:
+        csize, bn = CLUSTER
+        fwd, bwd = cluster_smem_bytes(hidden, csize, bn)
+        return TrainPlan("cluster", bn, (-(-n // bn) * csize, 2), fwd, bwd,
+                         dw_splits(n, seq_len, hidden), csize)
     # the packed kernels (csrc/lstm_train.cu kFwdNT, kBwdNT, launch_fwd)
     return TrainPlan("packed", 32, (-(-n // 32), 2), 32 * (hidden + 8) * 2,
                      16 * (5 * hidden + 16) * 2,
@@ -184,16 +232,22 @@ def lstm_recurrence_infer_plain(xp, w_hh):
     return lstm_recurrence_train_plain(xp, w_hh)[0]
 
 
-def lstm_recurrence_bwd_plain(xp, w_hh, hs, cs, g, with_dw: bool = True):
+def lstm_recurrence_bwd_plain(xp, w_hh, hs, cs, g, with_dw: bool = True,
+                              csize: int = 1):
     """Step loop of `_bwd_kernel`, line by line, dW included (summed in
     xp's dtype, then cast to w_hh's dtype as `_recurrence_bwd` does).
-    -> (dxp [N, L, 2, 4H], dW_hh [2, H, 4H] or None)."""
+    csize > 1 forms dh_{t-1} in the cluster sweep's order: the partials
+    of each CTA's gate columns (`cluster_gate_columns`) added in rank
+    order (tests only). -> (dxp [N, L, 2, 4H], dW_hh [2, H, 4H] or
+    None)."""
     n, seq_len, _, four_h = xp.shape
     hidden = four_h // 4
     dxp = torch.empty_like(xp)
     dw = xp.new_zeros(2, hidden, four_h)
     for d in (0, 1):
         w = w_hh[d].to(xp.dtype)
+        cols = [cluster_gate_columns(hidden, csize, r) for r in range(csize)
+                ] if csize > 1 else [slice(None)]
         order = _order(seq_len, d)
         dh = xp.new_zeros(n, hidden)
         dc = xp.new_zeros(n, hidden)
@@ -219,7 +273,8 @@ def lstm_recurrence_bwd_plain(xp, w_hh, hs, cs, g, with_dw: bool = True):
             dgates = torch.cat([di_pre, df_pre, dg_pre, do_pre], dim=1)
             if with_dw:
                 dw[d] += h_prev.T @ dgates
-            dh = _round(dgates, w_hh.dtype) @ w.T
+            dg = _round(dgates, w_hh.dtype)
+            dh = sum(dg[:, k] @ w[:, k].T for k in cols)   # in rank order
             dc = dc * fg
             dxp[:, t, d] = dgates
     return dxp, dw.to(w_hh.dtype) if with_dw else None
@@ -264,10 +319,13 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+_REFUSED = {-1: "the launcher refused the plan",
+            -2: "no cluster of the plan fits the card"}
+
+
 def _raise_on(err, name, n, seq_len, hidden):
     if err:
-        why = "the launcher refused the plan" if err == -1 \
-            else f"cudaError {err}"
+        why = _REFUSED.get(err, f"cudaError {err}")
         raise RuntimeError(f"{name} launch failed: {why} "
                            f"(N={n}, L={seq_len}, H={hidden})")
 
@@ -321,6 +379,11 @@ def lstm_recurrence_train(xp, w_hh):
                     xp.data_ptr(), w_hh.data_ptr(), hs.data_ptr(),
                     cs.data_ptr(), n, seq_len, hidden, plan.bn,
                     plan.fwd_smem, plan.grid[0], _stream(xp))
+            elif plan.path == "cluster":
+                err = lib.nsp_lstm_fwd_cluster(
+                    xp.data_ptr(), w_hh.data_ptr(), hs.data_ptr(),
+                    cs.data_ptr(), n, seq_len, hidden, plan.cluster, plan.bn,
+                    plan.fwd_smem, plan.grid[0], _stream(xp))
             else:
                 wpk = pack_a_fragments(w_hh.transpose(1, 2))  # w_hh^T
                 err = lib.nsp_lstm_fwd(
@@ -360,6 +423,12 @@ def lstm_recurrence_bwd(xp, w_hh, hs, cs, g, with_dw: bool = True):
                 g.data_ptr(), dxp.data_ptr(), part.data_ptr(),
                 dw.data_ptr() if with_dw else 0, int(with_dw), n, seq_len,
                 hidden, plan.bn, plan.bwd_smem, plan.grid[0], _stream(xp))
+        elif plan.path == "cluster":
+            err = lib.nsp_lstm_bwd_cluster(
+                xp.data_ptr(), w_hh.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+                g.data_ptr(), dxp.data_ptr(), n, seq_len, hidden,
+                plan.cluster, plan.bn, plan.bwd_smem, plan.grid[0],
+                _stream(xp))
         else:
             wpk_t = pack_a_fragments(w_hh.transpose(1, 2))   # [2, 4H, H]
             wpk_h = pack_a_fragments(w_hh)                   # [2, H, 4H]
@@ -369,9 +438,21 @@ def lstm_recurrence_bwd(xp, w_hh, hs, cs, g, with_dw: bool = True):
                 n, seq_len, hidden, _stream(xp))
     _raise_on(err, "lstm_recurrence_bwd", n, seq_len, hidden)
     LAUNCHES["lstm_recurrence_bwd"] += 1
-    if with_dw and plan.path == "packed":
+    if with_dw and plan.path != "smem":
         dw = lstm_dw_reduce(dxp, hs)
     return dxp, dw
+
+
+def cluster_occupancy(sweep: bool) -> int:
+    """Clusters of the cluster path's forward (or sweep) the card holds at
+    once (cudaOccupancyMaxActiveClusters on the current device)."""
+    from .build import library
+
+    got = library("lstm_train").nsp_lstm_cluster_occupancy(
+        int(sweep), cluster_smem_bytes()[int(sweep)])
+    if got < 0:
+        raise RuntimeError(f"cluster occupancy query failed: {got}")
+    return got
 
 
 def dw_splits(n: int, seq_len: int, hidden: int) -> int:

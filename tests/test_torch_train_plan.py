@@ -6,15 +6,22 @@ hold:
 
 - `plan_train` takes the smem path (w_hh in shared memory, dW summed in
   the sweep) at the pileup model's H=64, inside a block's shared memory
-  and in one wave of the card at the trainer's batch, and the packed
-  kernels at the haplotype model's H=256, at the trainers' shapes and at
-  ragged N;
+  and in one wave of the card at the trainer's batch, and the cluster
+  path (w_hh sliced over a 4-CTA cluster) at the haplotype model's H=256,
+  in one round of resident clusters at the trainer's batch, at the
+  trainers' shapes and at ragged N;
+- a cluster CTA's w_hh slice is the gate columns of its own units, and
+  the cluster sweep's order of sums (dh as the four CTAs' partials added
+  in rank order) agrees with the plain sweep and with the JAX package's
+  Pallas `_bwd_kernel` in interpret mode;
 - the plain version of the sweep's tiled dW, per-tile partials summed in
   tile order, equals `lstm_dw_reduce_plain` and, tile by tile, the
   `dw_tiles` of the JAX package's Pallas `_bwd_kernel` run in interpret
   mode;
 - the gate derivatives the sweep forms from the SFU gate formulas keep
-  the bound stated here.
+  the bound stated here;
+- the step-stamp tool (ops/step_stamps.py) finds each of its anchors in
+  the cluster kernels once, and averages the phases of the steady steps.
 """
 import numpy as np
 import pytest
@@ -22,10 +29,12 @@ import torch
 
 import jax.numpy as jnp
 
-from chip_smoke import TRAIN_SHAPES
+from chip_smoke import TRAIN_SHAPES, TRAIN_TOL
 from nanosnp_tpu.ops.pallas_lstm import (_run_recurrence_bwd,
                                          _run_recurrence_train)
+from nanosnp_tpu_torch.ops import build
 from nanosnp_tpu_torch.ops import lstm_train as T
+from nanosnp_tpu_torch.ops import step_stamps as S
 from nanosnp_tpu_torch.ops.bilstm import SM_COUNT, SMEM_MAX, SMEM_SM
 from test_torch_bilstm_plan import _sigmoid4, _tanh2
 from test_torch_lstm_train import (DW_ATOL, DW_RTOL, _from_jax_layout,
@@ -48,7 +57,7 @@ TANH_DERIV_BOUND = 4.2e-6
 def test_plan_paths_fit_the_card(n, label, seq_len, hidden):
     plan = T.plan_train(n, seq_len, hidden)
     tiles = -(-n // plan.bn)
-    assert plan.grid == (tiles, 2)
+    assert plan.grid == (tiles * plan.cluster, 2)
     if hidden == 64:
         assert plan.path == "smem", label
         assert plan.bn == T.TRAIN_BN and plan.dw_tiles == tiles
@@ -59,14 +68,99 @@ def test_plan_paths_fit_the_card(n, label, seq_len, hidden):
         if n <= 2000:
             assert plan.grid[0] * plan.grid[1] <= SM_COUNT
     else:
-        assert plan.path == "packed", label
+        assert plan.path == "cluster", label
         assert plan.dw_tiles == T.dw_splits(n, seq_len, hidden)
+
+
+@pytest.mark.parametrize("n", [1, 17, 512, 513, 2000])
+@pytest.mark.parametrize("label,seq_len,hidden",
+                         [(s[0], s[2], s[4]) for s in TRAIN_SHAPES
+                          if s[4] == 256])
+def test_cluster_plan_at_the_haplotype_shapes(n, label, seq_len, hidden):
+    plan = T.plan_train(n, seq_len, hidden)
+    assert plan.path == "cluster", label
+    assert (plan.cluster, plan.bn) == (4, 64)
+    assert (plan.fwd_smem, plan.bwd_smem) == T.cluster_smem_bytes()
+    assert max(plan.fwd_smem, plan.bwd_smem) <= SMEM_MAX
+    # one CTA an SM, as the clusters resident were counted
+    assert SMEM_SM // (plan.fwd_smem + 1024) == 1
+    clusters = plan.grid[0] // plan.cluster * plan.grid[1]
+    assert clusters == -(-n // 64) * 2
+    if n <= 512:   # the trainer's batch: one round of resident clusters
+        assert clusters <= 16 <= T.CLUSTERS_RESIDENT
+    # the batch tile of 32 would need a second round at the trainer's batch
+    assert -(-512 // 32) * 2 > T.CLUSTERS_RESIDENT
+
+
+@pytest.mark.parametrize("hidden,csize", [(256, 4), (64, 4), (32, 2)])
+def test_cluster_cta_slice_is_its_units_columns(hidden, csize):
+    """CTA r's gate columns K_r are {g H + r U + u}: all four gates of its
+    own U = H/C units, so its cell runs on its own gate product; the
+    CTAs' columns cover w_hh's 4H once."""
+    rng = np.random.default_rng(4)
+    w_hh = torch.from_numpy(rng.standard_normal((2, hidden, 4 * hidden))
+                            .astype(np.float32))
+    units = hidden // csize
+    seen = []
+    for r in range(csize):
+        cols = T.cluster_gate_columns(hidden, csize, r)
+        want = [g * hidden + r * units + u for g in range(4)
+                for u in range(units)]
+        assert cols.tolist() == want
+        for d in (0, 1):
+            torch.testing.assert_close(w_hh[d][:, cols], torch.stack(
+                [w_hh[d][:, c] for c in want], dim=1), atol=0, rtol=0)
+        seen += want
+    assert sorted(seen) == list(range(4 * hidden))
+
+
+def _to_kernel(a, n_pad):
+    """[N, L, 2, F] -> the Pallas layout [L, 2, F, Npad], dir 1 reversed."""
+    a = np.transpose(_to_jax_layout(a), (0, 1, 3, 2))
+    return jnp.asarray(np.pad(a, ((0, 0), (0, 0), (0, 0),
+                                  (0, n_pad - a.shape[-1]))))
+
+
+def _from_kernel(a, n):
+    """Inverse of _to_kernel, padded rows cut."""
+    return _from_jax_layout(np.transpose(np.asarray(a), (0, 1, 3, 2)))[:n]
+
+
+# dxp of the cluster order against the single-product sweep and the Pallas
+# kernel: f32 outputs with the same bf16 cast sites (h_{t-1}, dgates, w_hh)
+# on every side, so the gap is f32 summation order (the four partials added
+# in rank order, against one product), which can flip the bf16 rounding of
+# a dgate and carry it through the later steps; relative to the largest
+# value, as the card's check (chip_smoke.py TRAIN_TOL)
+@pytest.mark.parametrize("n,seq_len,hidden,block_n", [(13, 5, 16, 8),
+                                                      (7, 4, 32, 8)])
+def test_cluster_dh_order_matches_plain_and_pallas_interpret(
+        n, seq_len, hidden, block_n):
+    xp, w_hh, g_out = _inputs(5 * n + seq_len, n, seq_len, hidden)
+    n_pad = -(-n // block_n) * block_n
+    meta = dict(seq_len=seq_len, hidden=hidden, gate_dim=4 * hidden,
+                block_n=block_n, interpret=True)
+    xp_t = _to_kernel(xp, n_pad)
+    w_t = jnp.asarray(np.transpose(w_hh, (0, 2, 1))).astype(jnp.bfloat16)
+    hs, cs = _run_recurrence_train(xp_t, w_t, **meta)
+    dxp_j, _ = _run_recurrence_bwd(xp_t, w_t, hs, cs,
+                                   _to_kernel(g_out, n_pad), **meta)
+    args = [torch.from_numpy(a) for a in (xp, w_hh, _from_kernel(hs, n),
+                                          _from_kernel(cs, n), g_out)]
+    args[1] = args[1].bfloat16()
+    got, _ = T.lstm_recurrence_bwd_plain(*args, with_dw=False, csize=4)
+    one, _ = T.lstm_recurrence_bwd_plain(*args, with_dw=False)
+    want = torch.from_numpy(_from_kernel(dxp_j, n))
+    for ref in (one, want):
+        scale = max(1.0, ref.abs().max().item())
+        assert (got - ref).abs().max().item() <= TRAIN_TOL * scale
 
 
 @pytest.mark.parametrize("hidden", [16, 32, 48, 128])
 def test_other_widths_take_the_packed_path(hidden):
-    """The smem kernels are built for H=64 only; other widths, those that
-    would fit included, run the packed kernels."""
+    """The smem kernels are built for H=64 only, the cluster kernels for
+    256; other widths, those that would fit included, run the packed
+    kernels."""
     assert T.plan_train(5, 3, hidden).path == "packed"
 
 
@@ -102,14 +196,11 @@ def test_dw_tiles_match_pallas_interpret(n, seq_len, hidden, block_n):
     xp, w_hh, g_out = _inputs(3 * n + seq_len, n, seq_len, hidden)
     n_pad = -(-n // block_n) * block_n
 
-    def to_kernel(a):   # [N, L, 2, F] -> [L, 2, F, Npad], dir 1 reversed
-        a = np.transpose(_to_jax_layout(a), (0, 1, 3, 2))
-        return jnp.asarray(np.pad(a, ((0, 0), (0, 0), (0, 0),
-                                      (0, n_pad - n))))
+    def to_kernel(a):
+        return _to_kernel(a, n_pad)
 
-    def from_kernel(a):  # inverse, padded rows cut
-        return _from_jax_layout(np.transpose(np.asarray(a),
-                                             (0, 1, 3, 2)))[:n]
+    def from_kernel(a):
+        return _from_kernel(a, n)
 
     meta = dict(seq_len=seq_len, hidden=hidden, gate_dim=4 * hidden,
                 block_n=block_n, interpret=True)
@@ -142,3 +233,29 @@ def test_gate_derivatives_hold_the_stated_bound():
         deriv = (1.0 - tanh_v * tanh_v).double()
         assert not deriv.isnan().any()
         assert (deriv - (1 - t * t)).abs().max() <= TANH_DERIV_BOUND
+
+
+@pytest.mark.parametrize("no_stores", [False, True])
+def test_step_stamps_instrument_the_cluster_kernels(no_stores):
+    src = (build.CSRC / "lstm_train.cu").read_text()
+    out = S.instrument(src, no_stores)
+    assert out.count("g_stamps[") == 1 + len(S.FWD_PHASES) + len(
+        S.BWD_PHASES)
+    assert out.count("== 12345.0f") == (2 if no_stores else 0)
+    # the kernels before the cluster path's are left as they are
+    cut = src.index("lstm_fwd_cluster_kernel(const float*")
+    assert out.replace(out[:out.index("namespace {")], "", 1).startswith(
+        src[src.index("namespace {"):cut])
+    # phases: stamp k to k + 1 over the steady steps, the last phase to the
+    # next step's first stamp
+    steps, names = 6, [p[0] for p in S.BWD_PHASES]
+    stamps = np.zeros(S.MAX_STEPS * 16, np.int64)
+    for i in range(steps):
+        for k in range(len(names)):
+            stamps[i * 16 + k] = 1000 * i + 10 * k * k
+    got = S._phases(stamps, names, steps)
+    assert got["cycles_a_step"] == 1000.0
+    last = len(names) - 1
+    for k in range(last):
+        assert got[f"{k} {names[k]}"] == 10.0 * (2 * k + 1)
+    assert got[f"{last} {names[last]}"] == 1000.0 - 10.0 * last * last
