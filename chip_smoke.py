@@ -20,18 +20,23 @@
            at H=256), and the packed kernels at H=128 (the path of every
            other width), against their plain versions at the trainers'
            shapes, at N off the tiles and at N = 1 and 17, and the sweep's
-           dW against `lstm_dw_reduce_plain`; dxp and dW bit for bit the
-           same on a second run; prints the cluster kernels' resident
-           clusters; then times them alone and through their wrappers
-           beside cuDNN nn.LSTM in training mode (a yardstick only).
-  phase 1c holds the inference recurrence (f32 and bf16 xp, the CatModel
-           and pileup shapes), the center + head kernel (24 and 96 head
-           rows) and the two-layer kernel against their plain versions,
-           times them alone (weights packed once beforehand) and through
-           their wrappers beside cuDNN nn.LSTM in inference mode (plus
-           three torch.matmul for the head; yardsticks only), and shows by
-           the launch counts that `lstm_recurrence` takes the inference
-           kernel without gradients and the training kernels with them.
+           dW and `lstm_dw_reduce` (tensor cores, `plan_dw`) against
+           `lstm_dw_reduce_plain`; dxp and dW bit for bit the same on a
+           second run; prints the cluster kernels' resident clusters;
+           then times them alone and through their wrappers beside cuDNN
+           nn.LSTM in training mode and, for dW, one f32 torch.bmm
+           (yardsticks only).
+  phase 1c holds the inference recurrence (f32 and bf16 xp; `plan_infer`:
+           the cluster forward at the CatModel's H=256, the packed kernel
+           at the pileup shape's H=64) at N = 1, 65 and 3001, the center +
+           head kernel (24 and 96 head rows) and the two-layer kernel
+           against their plain versions, times them alone (weights packed
+           once beforehand; at H=256 the packed kernel beside the cluster
+           one) and through their wrappers beside cuDNN nn.LSTM in
+           inference mode (plus three torch.matmul for the head;
+           yardsticks only), and shows by the launch counts that
+           `lstm_recurrence` takes the inference kernel without gradients
+           and the training kernels with them.
   phase 1d the knock-out probe of the pileup model's first layer
            (ops/probe.py): each of its four modes against `probe_plain` at
            N=8192, `full` (the older design of the layer) also against
@@ -235,9 +240,13 @@ INFER_SHAPES = [
     ("pileup fused=False", 33, 18, 64),
 ]
 HEAD_ROWS = (24, 96)    # gt + zy, and all four heads (rows padded to 8)
+# batch sizes of the inference recurrence's check: one row, one past the
+# cluster path's tile of 64, and N_CHECK
+N_INFER_CHECK = (1, 65, N_CHECK)
 
-# H100 SXM f32 peak outside the tensor cores (NVIDIA data sheet): the dW
-# product runs in f32 on the CUDA cores
+# H100 SXM f32 peak outside the tensor cores (NVIDIA data sheet): the floor
+# of an f32 SIMT dW product (lstm_dw_reduce's design before the tensor
+# cores), printed beside the dW rows' bound for comparison
 PEAK_F32_FLOPS = 67e12
 # (label, N, L, D, H): every recurrence call of a training step, at the
 # trainers' batch sizes. The kernels see only H (xp is 4H wide); D is the
@@ -434,10 +443,12 @@ def _errs(got, want):
 
 def phase_train_kernels(dev):
     """Phase 1b: the training recurrence kernels of each shape's plan
-    (`plan_train`: smem at H=64, packed at H=256) against their plain
+    (`plan_train`: smem at H=64, cluster at H=256, packed at H=128) and
+    `lstm_dw_reduce` (tensor cores, `plan_dw`) against their plain
     versions at N off the tiles and at N = 1 and 17 (fewer rows than a
-    tile), dW twice for the same bits; then timed alone (`_train_alone`)
-    and through the wrappers, beside cuDNN at the trainers' shapes."""
+    tile), the sweep and dW twice for the same bits; then timed alone
+    (`_train_alone`) and through the wrappers, beside cuDNN (and one f32
+    `torch.bmm` for dW) at the trainers' shapes."""
     import torch
 
     from nanosnp_tpu_torch.ops import lstm_train as T
@@ -456,8 +467,8 @@ def phase_train_kernels(dev):
                 u(2, hidden, 4 * hidden, scale=k).bfloat16(),
                 u(n, seq_len, 2, hidden))
 
-    def bound(flop_f32, nbytes, flop_bf16=0):
-        t_ops = (flop_bf16 / PEAK_BF16_FLOPS + flop_f32 / PEAK_F32_FLOPS) * 1e3
+    def bound(flop_bf16, nbytes):
+        t_ops = flop_bf16 / PEAK_BF16_FLOPS * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
         return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes \
             else "bytes"
@@ -478,12 +489,16 @@ def phase_train_kernels(dev):
             dxp, dw = T.lstm_recurrence_bwd(xp, w, hs, cs, g)
             dxp_again, dw_again = T.lstm_recurrence_bwd(xp, w, hs, cs, g)
             dw_sep = T.lstm_dw_reduce(dxp, hs)
+            dw_sep_again = T.lstm_dw_reduce(dxp, hs)
             torch.cuda.synchronize()
             if not (torch.equal(dw, dw_again) and torch.equal(dxp,
                                                                dxp_again)):
                 # dxp: the cluster sweep's dh sum is in a fixed order too
                 raise AssertionError(f"{label} N={n_check}: a second sweep "
                                      "gave other bits")
+            if not torch.equal(dw_sep, dw_sep_again):
+                raise AssertionError(f"{label} N={n_check}: a second "
+                                     "lstm_dw_reduce gave other bits")
             hs_p, cs_p = T.lstm_recurrence_train_plain(xp, w)
             dxp_p, _ = T.lstm_recurrence_bwd_plain(xp, w, hs, cs, g,
                                                    with_dw=False)
@@ -531,12 +546,12 @@ def phase_train_kernels(dev):
                              dxp[:, :-1, 1].reshape(-1, 4 * hidden)])
         flop_s, bytes_s = T.bwd_cost(n, seq_len, hidden)
         flop_w, bytes_w = T.dw_cost(n, seq_len, hidden)
-        b_f, by_f = bound(0, T.train_cost(n, seq_len, hidden)[1],
-                          T.train_cost(n, seq_len, hidden)[0])
-        b_s, by_s = bound(0, bytes_s, flop_s)
+        b_f, by_f = bound(*T.train_cost(n, seq_len, hidden))
+        b_s, by_s = bound(flop_s, bytes_s)
         b_w, by_w = bound(flop_w, bytes_w)
         # sweep and dW as one function: the sweep's bytes and dW written
-        b_sw, _ = bound(flop_w, bytes_s + 2 * hidden * 4 * hidden * 2, flop_s)
+        b_sw, _ = bound(flop_s + flop_w,
+                        bytes_s + 2 * hidden * 4 * hidden * 2)
         timed = [
             ("lstm_recurrence_train", alone["fwd"],
              lambda: T.lstm_recurrence_train(xp, w),
@@ -552,15 +567,20 @@ def phase_train_kernels(dev):
                      lambda: T.lstm_recurrence_bwd(xp, w, hs, cs, g), 20),
                  "bound_ms_with_dw": b_sw,
                  "max_abs_err_dw": errs["lstm_recurrence_bwd dW"]}),
-            ("lstm_dw_reduce", None, lambda: T.lstm_dw_reduce(dxp, hs),
+            ("lstm_dw_reduce", alone["dW"], lambda: T.lstm_dw_reduce(dxp, hs),
              lambda: T.lstm_dw_reduce_plain(dxp, hs),
-             cuda_time(lambda: torch.bmm(a_lib, b_lib), 10), b_w, by_w, {}),
+             cuda_time(lambda: torch.bmm(a_lib, b_lib), 10), b_w, by_w, {
+                 # the f32 SIMT design's floor: one f32 product at 67 TFLOP/s
+                 "f32_simt_floor_ms": flop_w / 3 / PEAK_F32_FLOPS * 1e3,
+                 "plan": T.plan_dw(n, seq_len, hidden)._asdict()}),
         ]
         for name, alone_fn, kern, plain, library_ms, b_ms, b_by, extra in \
                 timed:
             wrapper_ms = cuda_time(kern, 20)
-            # lstm_dw_reduce packs nothing: its wrapper is the kernel alone
-            ms = cuda_time(alone_fn, 20) if alone_fn else wrapper_ms
+            if alone_fn() not in (0, (0, 0)):
+                raise AssertionError(f"{name} {label}: a launch of the "
+                                     "kernels alone failed")
+            ms = cuda_time(alone_fn, 20)
             rows.append(dict(
                 name=name, shape=label, path=path, N=n, L=seq_len, H=hidden,
                 max_abs_err=errs[name], ms=ms, wrapper_ms=wrapper_ms,
@@ -574,16 +594,21 @@ def phase_train_kernels(dev):
                 f"ms, bound {b_ms:.4f} ms ({b_by})"
                 + (f"; with dW alone {extra['ms_with_dw']:.3f} ms, wrapper "
                    f"{extra['wrapper_ms_with_dw']:.3f} ms, bound "
-                   f"{extra['bound_ms_with_dw']:.4f} ms" if extra else ""))
+                   f"{extra['bound_ms_with_dw']:.4f} ms"
+                   if "ms_with_dw" in extra else "")
+                + (f"; f32 SIMT floor {extra['f32_simt_floor_ms']:.4f} ms"
+                   if "f32_simt_floor_ms" in extra else ""))
     return rows
 
 
 def _train_alone(T, lib, xp, w, hs, cs, g, dxp):
     """The training kernels of the package `T` was imported from, launched
     with their outputs (and, on the packed path, the packed w_hh) made
-    beforehand: {"fwd", "sweep", "sweep+dW"} -> callable, and the path.
-    A tree without `plan_train` runs the packed kernels at every H (their
-    C interface is the same there)."""
+    beforehand: {"fwd", "sweep", "sweep+dW", "dW"} -> callable, and the
+    path ("dW" is `lstm_dw_reduce`'s kernels, on every path). A tree
+    without `plan_train` runs the packed kernels at every H (their C
+    interface is the same there); one without `plan_dw` the SIMT dW
+    kernel, its splits from `dw_splits`."""
     import torch
 
     n, seq_len, _, four_h = xp.shape
@@ -594,6 +619,26 @@ def _train_alone(T, lib, xp, w, hs, cs, g, dxp):
     hs2, cs2, dxp2 = (torch.empty_like(t) for t in (hs, cs, dxp))
     dw = torch.empty(2, hidden, 4 * hidden, dtype=torch.bfloat16,
                      device=xp.device)
+    if hasattr(T, "plan_dw"):
+        dplan = T.plan_dw(n, seq_len, hidden)
+        dw_part = torch.empty(dplan.splits, 2, hidden, 4 * hidden,
+                              device=xp.device)
+
+        def dw_only():
+            return lib.nsp_lstm_dw(
+                dxp.data_ptr(), hs.data_ptr(), dw_part.data_ptr(),
+                dw.data_ptr(), n, seq_len, hidden, dplan.rows, dplan.splits,
+                dplan.smem, dplan.grid[0], stream)
+    else:
+        splits = T.dw_splits(n, seq_len, hidden)
+        dw_part = torch.empty(splits, 2, hidden, 4 * hidden,
+                              device=xp.device)
+
+        def dw_only():
+            return lib.nsp_lstm_dw(
+                dxp.data_ptr(), hs.data_ptr(), dw_part.data_ptr(),
+                dw.data_ptr(), n, seq_len, hidden, splits, stream)
+
     if plan is not None and plan.path == "smem":
         part = torch.empty(plan.dw_tiles, 2, hidden, 4 * hidden,
                            device=xp.device)
@@ -610,15 +655,7 @@ def _train_alone(T, lib, xp, w, hs, cs, g, dxp):
                 xp.data_ptr(), w.data_ptr(), hs2.data_ptr(), cs2.data_ptr(),
                 n, seq_len, hidden, plan.bn, plan.fwd_smem, plan.grid[0],
                 stream),
-            "sweep": bwd(0), "sweep+dW": bwd(1)}
-    splits = T.dw_splits(n, seq_len, hidden)
-    part = torch.empty(splits, 2, hidden, 4 * hidden, device=xp.device)
-
-    def dw_only():
-        return lib.nsp_lstm_dw(dxp.data_ptr(), hs.data_ptr(), part.data_ptr(),
-                               dw.data_ptr(), n, seq_len, hidden, splits,
-                               stream)
-
+            "sweep": bwd(0), "sweep+dW": bwd(1), "dW": dw_only}
     if plan is not None and plan.path == "cluster":
         def sweep():
             return lib.nsp_lstm_bwd_cluster(
@@ -631,7 +668,8 @@ def _train_alone(T, lib, xp, w, hs, cs, g, dxp):
                 xp.data_ptr(), w.data_ptr(), hs2.data_ptr(), cs2.data_ptr(),
                 n, seq_len, hidden, plan.cluster, plan.bn, plan.fwd_smem,
                 plan.grid[0], stream),
-            "sweep": sweep, "sweep+dW": lambda: (sweep(), dw_only())}
+            "sweep": sweep, "sweep+dW": lambda: (sweep(), dw_only()),
+            "dW": dw_only}
     wpk_t = T.pack_a_fragments(w.transpose(1, 2))
     wpk_h = T.pack_a_fragments(w)
 
@@ -645,7 +683,8 @@ def _train_alone(T, lib, xp, w, hs, cs, g, dxp):
         "fwd": lambda: lib.nsp_lstm_fwd(
             xp.data_ptr(), wpk_t.data_ptr(), hs2.data_ptr(), cs2.data_ptr(),
             n, seq_len, hidden, stream),
-        "sweep": sweep, "sweep+dW": lambda: (sweep(), dw_only())}
+        "sweep": sweep, "sweep+dW": lambda: (sweep(), dw_only()),
+        "dW": dw_only}
 
 
 def train_kernel_times(dev):
@@ -999,31 +1038,61 @@ def phase_new_kernels(dev):
     fused_lib = library("bilstm_fused")
     stream = torch.cuda.current_stream(dev).cuda_stream
 
-    # ---- lstm_recurrence_infer: f32 and bf16 xp
+    # ---- lstm_recurrence_infer: f32 and bf16 xp, the path of `plan_infer`
+    # (cluster at the CatModel's H=256, packed at H=64); at H=256 the
+    # packed kernel is timed beside it in the same run, as the design
+    # before
     for label, seq_len, d_lib, hidden in INFER_SHAPES:
         lib = cudnn_ms(d_lib, hidden, seq_len)
+        path = T.plan_infer(N_TIME, seq_len, hidden).path
         for xp_dtype in (torch.float32, torch.bfloat16):
             w = u(2, hidden, 4 * hidden,
                   scale=1.0 / math.sqrt(hidden)).bfloat16()
-            xp = u(N_CHECK, seq_len, 2, 4 * hidden, scale=3.0).to(xp_dtype)
-            got = T.lstm_recurrence_infer(xp, w)
-            torch.cuda.synchronize()
-            err, rel = _errs(got, T.lstm_recurrence_infer_plain(xp, w))
             tag = f"{label}, xp {str(xp_dtype).split('.')[-1]}"
-            log(f"[check] lstm_recurrence_infer {tag:30s} N={N_CHECK} "
-                f"L={seq_len} H={hidden}: max|d|={err:.3e} (tol {TRAIN_TOL})")
+            err = 0.0
+            for n_check in N_INFER_CHECK:
+                xp = u(n_check, seq_len, 2, 4 * hidden, scale=3.0).to(
+                    xp_dtype)
+                got = T.lstm_recurrence_infer(xp, w)
+                torch.cuda.synchronize()
+                e, rel = _errs(got, T.lstm_recurrence_infer_plain(xp, w))
+                log(f"[check] lstm_recurrence_infer {tag:30s} ({path}) "
+                    f"N={n_check} L={seq_len} H={hidden}: max|d|={e:.3e}, "
+                    f"over max(1, max|want|) {rel:.3e} (tol {TRAIN_TOL})")
+                if not rel <= TRAIN_TOL:
+                    raise AssertionError(f"lstm_recurrence_infer {tag} "
+                                         f"N={n_check}: {rel} > {TRAIN_TOL}")
+                err = max(err, e)
             xp = u(N_TIME, seq_len, 2, 4 * hidden, scale=3.0).to(xp_dtype)
+            xp_bf16 = int(xp.dtype == torch.bfloat16)
             wpk = K.pack_a_fragments(w.transpose(1, 2))
             hs = torch.empty(N_TIME, seq_len, 2, hidden, device=dev)
+            plan = T.plan_infer(N_TIME, seq_len, hidden)
+
+            def packed():
+                return library("lstm_train").nsp_lstm_infer(
+                    xp.data_ptr(), xp_bf16, wpk.data_ptr(), hs.data_ptr(),
+                    N_TIME, seq_len, hidden, stream)
+
+            def cluster():
+                return library("lstm_train").nsp_lstm_infer_cluster(
+                    xp.data_ptr(), xp_bf16, w.data_ptr(), hs.data_ptr(),
+                    N_TIME, seq_len, hidden, plan.cluster, plan.bn, plan.smem,
+                    plan.grid[0], stream)
+
+            alone = cluster if path == "cluster" else packed
+            if alone() != 0 or packed() != 0:
+                raise AssertionError(f"lstm_recurrence_infer {tag}: a launch "
+                                     "of the kernel alone failed")
             record("lstm_recurrence_infer", tag, err, TRAIN_TOL,
-                   lambda: T.lstm_recurrence_infer(xp, w),
-                   lambda: library("lstm_train").nsp_lstm_infer(
-                       xp.data_ptr(), int(xp.dtype == torch.bfloat16),
-                       wpk.data_ptr(), hs.data_ptr(), N_TIME, seq_len, hidden,
-                       stream),
+                   lambda: T.lstm_recurrence_infer(xp, w), alone,
                    lambda: T.lstm_recurrence_infer_plain(xp, w), lib,
                    T.infer_cost(N_TIME, seq_len, hidden, xp.element_size()),
-                   L=seq_len, H=hidden)
+                   L=seq_len, H=hidden, path=path)
+            if path == "cluster":
+                rows[-1]["packed_ms"] = cuda_time(packed, 10)
+                log(f"[time]  the packed kernel alone at the same shape: "
+                    f"{rows[-1]['packed_ms']:.3f} ms")
 
     # ---- bilstm_center_head at the s2 L2 shape
     seq_len, d_in, hidden, p_dim, q_dim = 33, 128, 64, 128, 256

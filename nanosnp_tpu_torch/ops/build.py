@@ -62,8 +62,9 @@ SOURCES: Dict[str, Dict[str, List]] = {
         # xp, packed w_hh^T, packed w_hh, hs, cs, g, dxp, n, seq_len,
         # hidden, stream
         "nsp_lstm_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-        # dxp, hs, split scratch, dw, n, seq_len, hidden, splits, stream
-        "nsp_lstm_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # dxp, hs, split scratch, dw, n, seq_len, hidden, rows, splits,
+        # smem, grid_x, stream
+        "nsp_lstm_dw": [_P] * 4 + [_I] * 7 + [_P],
         # the smem path: xp, w_hh, hs, cs, n, seq_len, hidden, bn, smem,
         # grid_x, stream
         "nsp_lstm_fwd_smem": [_P] * 4 + [_I] * 6 + [_P],
@@ -76,6 +77,9 @@ SOURCES: Dict[str, Dict[str, List]] = {
         # xp, w_hh, hs, cs, g, dxp, n, seq_len, hidden, cluster, bn, smem,
         # grid_x, stream
         "nsp_lstm_bwd_cluster": [_P] * 6 + [_I] * 7 + [_P],
+        # xp, xp_bf16, w_hh, hs, n, seq_len, hidden, cluster, bn, smem,
+        # grid_x, stream
+        "nsp_lstm_infer_cluster": [_P, _I, _P, _P] + [_I] * 7 + [_P],
         # sweep, smem
         "nsp_lstm_cluster_occupancy": [_I] * 2,
     },

@@ -5,7 +5,8 @@
 // Replaces the Pallas TPU kernels of nanosnp_tpu/ops/pallas_lstm.py behind
 // the custom VJP `_recurrence` (its primal, and the differentiable
 // recurrence of training):
-//   nsp_lstm_infer <- _kernel       (no gradient wanted: streams h_t only,
+//   nsp_lstm_infer_cluster, nsp_lstm_infer
+//                 <- _kernel       (no gradient wanted: streams h_t only,
 //                                    xp f32 or bf16)
 //   nsp_lstm_fwd_smem, nsp_lstm_fwd_cluster, nsp_lstm_fwd
 //                 <- _train_kernel  (forward; streams h_t and c_t)
@@ -15,7 +16,9 @@
 //                                    one sums dW too)
 //   nsp_lstm_dw   <- the dW accumulation of _bwd_kernel (its VMEM sum over
 //                    batch tiles, then the wrapper's sum over tiles):
-//                    dW[d] = sum_{t,n} h_{t-1}[d, n, :]^T dxp[t, d, n, :]
+//                    dW[d] = sum_{t,n} h_{t-1}[d, n, :]^T dxp[t, d, n, :],
+//                    on the tensor cores (split bf16, three products) over
+//                    a fixed split of the rows, the splits added in order
 //
 // Layouts (true time order; direction 1 walks time backwards inside the
 // kernels, so no reversed copies are made):
@@ -31,17 +34,20 @@
 // f32. Backward: gates recomputed from xp + W.bf16(h_{t-1}); dgates f32;
 // dh_{t-1} = W^T.bf16(dgates) with f32 accumulation; dc <- dc.f;
 // dW += dgates (x) h_{t-1} in f32 with f32 h_{t-1} (on the smem path as
-// three bf16 products of the split operands, below), rounded to bf16 once,
-// after the whole sum.
+// three bf16 products of the split operands, below, in the sweep on the
+// smem path and in nsp_lstm_dw elsewhere), rounded to bf16 once, after the
+// whole sum.
 //
 // What bounds them on this card. Each step is a [4H, H] x [H, BN] product
 // (the backward adds a [H, 4H] x [4H, BN] one) that depends on the step
 // before, L steps in a row. The f32 streams (xp in, hs and cs out; in the
 // backward xp, hs, cs, g in and dxp out) are the least traffic, and at the
 // training batch sizes they, not the operations, give the bound; so too
-// for the inference kernel, which moves xp in and hs out and nothing else.
+// for the inference kernels, which move xp in and hs out and nothing else.
 // Training takes one of three designs, picked per call by the wrapper's
-// plan (ops/lstm_train.plan_train), which the launchers check:
+// plan (ops/lstm_train.plan_train), which the launchers check; inference
+// the cluster forward at H=256 and the packed one elsewhere
+// (ops/lstm_train.plan_infer):
 //
 // 1. smem (nsp_lstm_fwd_smem, nsp_lstm_bwd_smem), H=64, the pileup model
 //    (the kernels are templates on H, built for 64): one block per
@@ -93,6 +99,8 @@
 //      product has read it (the w slice and the partials' slots leave no
 //      room for two).
 //    - dW is nsp_lstm_dw's, as on the packed path.
+//    - Inference (nsp_lstm_infer_cluster) is the forward kernel without the
+//      c_t stream, xp f32 or bf16 widened on load: one template.
 //    Bound: L dependent steps, each a chain of latencies (cluster barriers,
 //    shared-memory products, the DSMEM exchange) plus the step's own
 //    device-memory streams, which at the trainer's batch only 64 SMs pull:
@@ -107,8 +115,14 @@
 //      per warp and tile): w_hh^T for the gates, w_hh for dh;
 //    - bf16 h_{t-1} (and in the backward bf16 dgates) in shared memory as
 //      the B operand; xp, g, hs, cs read straight into registers;
-//    - dW its own kernel, an f32 SIMT product over a fixed split of the n*L
-//      rows and a second pass that sums the splits in order.
+//    - dW is nsp_lstm_dw's, as on the cluster path.
+// dW (nsp_lstm_dw, every H but the smem path's): the tensor cores, each f32
+// operand split into bf16 hi + lo on its way into shared memory, three
+// products; a fixed split of the N (L-1) rows, one CTA per (output tile,
+// split, direction), and a second small launch that adds the splits in
+// order. Bound: its bytes, both f32 operands read once (0.052 ms at the
+// haplotype trainer's N=512, L=33, at an H100 SXM's published 3.35 TB/s,
+// 700 W; the three products take 0.017 ms at its 989 TFLOP/s).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -382,88 +396,6 @@ lstm_bwd_kernel(const float* __restrict__ xp, const uint4* __restrict__ wpk_t,
   }
 }
 
-// dW partial sums. Rows m of direction d are the (n, t) pairs whose step
-// has a predecessor: m = n_idx * (L-1) + q, t = q + 1 - d, t_prev = q + d.
-// part [splits, 2, H, 4H] f32. Block tile 64 (h) x 64 (k), 256 threads of
-// 4 x 4 outputs, 16 rows per stage. grid = (ceil(4H/64), ceil(H/64),
-// 2 * splits), blockIdx.z = d * splits + split.
-constexpr int kTile = 64;
-constexpr int kRows = 16;
-
-__global__ void __launch_bounds__(256)
-lstm_dw_partial_kernel(const float* __restrict__ dxp,
-                       const float* __restrict__ hs, float* __restrict__ part,
-                       int n, int seq_len, int hidden, int splits,
-                       int chunk) {
-  __shared__ __align__(16) float s_a[kRows][kTile];  // h_{t-1}[m, h]
-  __shared__ __align__(16) float s_b[kRows][kTile];  // dxp[m, k]
-  const int four_h = 4 * hidden;
-  const int k0 = blockIdx.x * kTile;
-  const int h0 = blockIdx.y * kTile;
-  const int d = blockIdx.z / splits;
-  const int split = blockIdx.z - d * splits;
-  const int steps = seq_len - 1;
-  const long long rows = (long long)n * steps;
-  const long long m_begin = (long long)split * chunk;
-  const long long m_end =
-      m_begin + chunk < rows ? m_begin + chunk : rows;
-  const int tx = threadIdx.x & 15;  // k: 4 * tx .. 4 * tx + 3
-  const int ty = threadIdx.x >> 4;  // h: 4 * ty .. 4 * ty + 3
-  // this thread's loads: row lr of the stage, 4 columns from 4 * lc
-  const int lr = threadIdx.x >> 4;
-  const int lc = (threadIdx.x & 15) * 4;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (long long m0 = m_begin; m0 < m_end; m0 += kRows) {
-    const long long m = m0 + lr;
-    float4 va = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 vb = va;
-    if (m < m_end) {
-      const long long n_idx = m / steps;
-      const int q = (int)(m - n_idx * steps);
-      const int t = q + 1 - d;
-      const int tp = q + d;
-      if (h0 + lc < hidden)
-        va = *reinterpret_cast<const float4*>(
-            hs + ((n_idx * seq_len + tp) * 2 + d) * hidden + h0 + lc);
-      if (k0 + lc < four_h)
-        vb = *reinterpret_cast<const float4*>(
-            dxp + ((n_idx * seq_len + t) * 2 + d) * four_h + k0 + lc);
-    }
-    *reinterpret_cast<float4*>(&s_a[lr][lc]) = va;
-    *reinterpret_cast<float4*>(&s_b[lr][lc]) = vb;
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(&s_a[r][4 * ty]);
-      const float4 b = *reinterpret_cast<const float4*>(&s_b[r][4 * tx]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  float* out = part + (((size_t)split * 2 + d) * hidden) * four_h;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int h = h0 + 4 * ty + i;
-    if (h >= hidden) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = k0 + 4 * tx + j;
-      if (k < four_h) out[(size_t)h * four_h + k] = acc[i][j];
-    }
-  }
-}
-
 // dW = bf16(sum over splits, in split order)
 __global__ void lstm_dw_sum_kernel(const float* __restrict__ part,
                                    __nv_bfloat16* __restrict__ dw,
@@ -577,6 +509,16 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+// shared-memory writes of the generic proxy visible to wgmma's reads (the
+// async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // x, y as two bf16 pairs, hi = (x, y) rounded and lo = what hi leaves,
@@ -1070,6 +1012,297 @@ int launch_bwd_smem(const void* xp, const void* w, const void* hs,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// dW on the tensor cores (nsp_lstm_dw: the cluster and packed paths).
+// dW[d] = A_d^T B_d over the rows m of direction d, the (n, step) pairs with
+// a predecessor: m = n_idx (L-1) + q, t = q + 1 - d, t_prev = q + d; A_d
+// [M, H] is h_{t_prev} (hs), B_d [M, 4H] dxp at t, both f32, rows at a
+// stride of 2H and 8H floats. One CTA computes a kDwTH (units) x kDwTK (gate
+// columns) tile of one direction over one split of the rows: grid (output
+// tiles, splits, 2), the tiles of one (split, direction) next to each other,
+// so the CTAs that read the same rows run together and each row comes from
+// device memory once.
+//   - A ring of kDwStages f32 chunks (kDwRows rows of the tile's A and B
+//     columns) is filled by cp.async. Each thread splits the pieces it
+//     copied itself (its own wait_group makes them visible to it, so the
+//     ring needs no barrier) into bf16 hi + lo tiles, double buffered: A as
+//     it comes ([rows][units]), B transposed into K-major 8x8 core matrices
+//     for wgmma.
+//   - Two warpgroups of 64 units x kDwTK columns: per 16 rows, A^T's
+//     fragments by ldmatrix.trans (a warp's 16 units, the mma.m16n8k16 A
+//     layout that wgmma takes from registers) and three wgmma m64n128k16
+//     (hi hi, hi lo, lo hi) into one f32 accumulator: within about 2^-15 of
+//     each f32 product, against the 2^-8 of the bf16 dW returned. The
+//     products of chunk c run while the same warps split chunk c + 1: one
+//     barrier a chunk.
+//   - Each CTA writes its partial once to part [splits, 2, H, 4H] f32;
+//     lstm_dw_sum_kernel adds the partials in split order and rounds to bf16
+//     once. No atomics: the same bits every run.
+constexpr int kDwTH = 128;                // units (rows of dW) a tile
+constexpr int kDwTK = 128;                // gate columns a tile (wgmma N)
+constexpr int kDwRows = 32;               // rows m a chunk
+constexpr int kDwStages = 4;              // f32 chunks in the ring
+constexpr int kDwLd = kDwTH + kRowPad;    // a row of the A tiles, bf16
+constexpr int kDwTileA = kDwRows * kDwLd;  // an A tile, bf16
+// B tiles: core matrix (column group g, row group q) at g kDwSbo + q 128
+// bytes, 8 columns x 8 rows m, a column's 8 rows in 16 bytes; the 16 bytes
+// between column groups spread the split's stores over the banks
+constexpr int kDwSbo = kDwRows / 8 * 128 + 16;
+constexpr int kDwTileB = kDwTK / 8 * kDwSbo / 2;  // a B tile, bf16
+constexpr int kDwBuf = 2 * kDwTileA + 2 * kDwTileB;  // A hi, lo, B hi, lo
+constexpr int kDwThreads = 256;
+
+int dw_smem_bytes() {
+  return kDwStages * kDwRows * (kDwTH + kDwTK) * 4 + 2 * kDwBuf * 2;
+}
+
+int dw_tiles(int hidden) {
+  return (hidden + kDwTH - 1) / kDwTH * ((4 * hidden + kDwTK - 1) / kDwTK);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// wgmma (as csrc/bilstm.cu's in-projection issues it): D[64 x 128] +=
+// A[64 x 16] B[16 x 128], A from registers (warp w of the warpgroup holds
+// rows 16 w.. in the mma.m16n8k16 A-fragment layout), B from shared memory
+// through a descriptor of K-major core matrices; D per 8 columns j in the
+// m16n8 accumulator layout (d[4j..4j+3]).
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// descriptor of a K-major B tile without swizzle: k-adjacent core matrices
+// 128 bytes apart, n-adjacent ones kDwSbo
+__device__ __forceinline__ uint64_t dw_desc(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(128 >> 4) << 16) | ((uint64_t)(kDwSbo >> 4) << 32);
+}
+
+// empty asms that read and write the registers: the compiler keeps their
+// values where they are up to here (operands of an issued wgmma, which
+// reads and writes them until its wait)
+template <int kN>
+__device__ __forceinline__ void keep_regs(float (&v)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(v[i])::"memory");
+}
+
+template <int kN>
+__device__ __forceinline__ void keep_regs(uint32_t (&v)[kN][4]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i)
+    asm volatile("" : "+r"(v[i][0]), "+r"(v[i][1]), "+r"(v[i][2]),
+                 "+r"(v[i][3])::"memory");
+}
+
+// four f32 as bf16 hi (their rounding) and lo (what hi leaves, rounded)
+__device__ __forceinline__ void split4(const float4& v, uint2& hi,
+                                       uint2& lo) {
+  split2(v.x, v.y, hi.x, lo.x);
+  split2(v.z, v.w, hi.y, lo.y);
+}
+
+// part [splits, 2, H, 4H] f32; rows: rows m a split (a multiple of kDwRows)
+__global__ void __launch_bounds__(kDwThreads, 1)
+lstm_dw_tc_kernel(const float* __restrict__ dxp, const float* __restrict__ hs,
+                  float* __restrict__ part, int n, int seq_len, int hidden,
+                  int rows) {
+  extern __shared__ uint4 smem_u4[];
+  constexpr int kStage = kDwRows * (kDwTH + kDwTK);  // floats a ring slot
+  float* s_ring = reinterpret_cast<float*>(smem_u4);
+  __nv_bfloat16* s_split =
+      reinterpret_cast<__nv_bfloat16*>(s_ring + kDwStages * kStage);
+  const int four_h = 4 * hidden;
+  const int tiles_k = (four_h + kDwTK - 1) / kDwTK;
+  const int h0 = blockIdx.x / tiles_k * kDwTH;
+  const int k0 = (blockIdx.x % tiles_k) * kDwTK;
+  const int d = blockIdx.z;
+  const int steps = seq_len - 1;
+  const int total = n * steps;  // below 2^31: dw_plan_ok
+  const int m_begin = blockIdx.y * rows;
+  const int m_end = m_begin + rows < total ? m_begin + rows : total;
+  const int chunks =
+      m_end > m_begin ? (m_end - m_begin + kDwRows - 1) / kDwRows : 0;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int grp = lane >> 2;
+  const int tig = lane & 3;
+  // this thread's pieces of a chunk: rows 4 r0 + i (i < 4), 4 columns from
+  // c4 of the tile, in A and in B; zero past H, 4H or the split's rows
+  const int r0 = warp;
+  const int c4 = lane * 4;
+  const bool a_cols = h0 + c4 < hidden;
+  const bool b_cols = k0 + c4 < four_h;
+  // warpgroup warp / 4 computes units 64 (warp / 4).. of the tile, the
+  // warp the 16 from wu
+  const int wu = (warp >> 2) * 64 + (warp & 3) * 16;
+
+  auto fetch = [&](int c) {
+    if (c < chunks) {
+      float* st = s_ring + (c % kDwStages) * kStage;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 4 * r0 + i;
+        const int m = m_begin + c * kDwRows + r;
+        const bool ok = m < m_end;
+        const int n_idx = ok ? m / steps : 0;
+        const int q = ok ? m - n_idx * steps : 0;
+        const float* a = hs + (((size_t)n_idx * seq_len + q + d) * 2 + d) *
+                                  hidden + h0 + c4;
+        const float* b = dxp + (((size_t)n_idx * seq_len + q + 1 - d) * 2 +
+                                d) * four_h + k0 + c4;
+        cp_async16(st + r * kDwTH + c4, ok && a_cols ? a : hs, ok && a_cols);
+        cp_async16(st + kDwRows * kDwTH + r * kDwTK + c4,
+                   ok && b_cols ? b : dxp, ok && b_cols);
+      }
+    }
+    cp_async_commit();  // empty past the last chunk: the count stays even
+  };
+  // this thread's pieces of chunk c, from the ring into split buffer c & 1:
+  // A rows 4 r0.. as they are; B's columns c4.. transposed, the four rows
+  // one 8-byte half of each column's row of its core matrix
+  auto split = [&](int c) {
+    const float* st = s_ring + (c % kDwStages) * kStage;
+    __nv_bfloat16* sb = s_split + (c & 1) * kDwBuf;
+    float4 bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 4 * r0 + i;
+      uint2 hi, lo;
+      split4(*reinterpret_cast<const float4*>(st + r * kDwTH + c4), hi, lo);
+      *reinterpret_cast<uint2*>(sb + r * kDwLd + c4) = hi;
+      *reinterpret_cast<uint2*>(sb + kDwTileA + r * kDwLd + c4) = lo;
+      bv[i] = *reinterpret_cast<const float4*>(st + kDwRows * kDwTH +
+                                               r * kDwTK + c4);
+    }
+    const float col[4][4] = {{bv[0].x, bv[1].x, bv[2].x, bv[3].x},
+                             {bv[0].y, bv[1].y, bv[2].y, bv[3].y},
+                             {bv[0].z, bv[1].z, bv[2].z, bv[3].z},
+                             {bv[0].w, bv[1].w, bv[2].w, bv[3].w}};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int nc = c4 + e;  // the column in the tile
+      uint2 hi, lo;
+      split4(make_float4(col[e][0], col[e][1], col[e][2], col[e][3]), hi, lo);
+      const int off = (nc >> 3) * (kDwSbo / 2) + (r0 >> 1) * 64 +
+                      (nc & 7) * 8 + (r0 & 1) * 4;
+      *reinterpret_cast<uint2*>(sb + 2 * kDwTileA + off) = hi;
+      *reinterpret_cast<uint2*>(sb + 2 * kDwTileA + kDwTileB + off) = lo;
+    }
+  };
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  // this thread's ldmatrix row of A^T (units by rows m), read transposed
+  const int a_off = ((lane & 7) + (lane >> 4) * 8) * kDwLd + wu +
+                    ((lane >> 3) & 1) * 8;
+
+#pragma unroll
+  for (int c = 0; c < kDwStages - 1; ++c) fetch(c);
+  if (chunks > 0) {
+    cp_async_wait<kDwStages - 2>();
+    fetch(kDwStages - 1);
+    split(0);
+  }
+  fence_proxy_async();  // the split's B tiles visible to wgmma
+  __syncthreads();
+  for (int c = 0; c < chunks; ++c) {
+    const __nv_bfloat16* sb = s_split + (c & 1) * kDwBuf;
+    // every warpgroup issues its products, past H too (on zeros): wgmma
+    // under a branch the compiler cannot prove uniform is serialized
+    uint32_t ah[kDwRows / 16][4], al[kDwRows / 16][4];
+#pragma unroll
+    for (int ks = 0; ks < kDwRows / 16; ++ks) {
+      ldmatrix_x4_trans(ah[ks], sb + ks * 16 * kDwLd + a_off);
+      ldmatrix_x4_trans(al[ks], sb + kDwTileA + ks * 16 * kDwLd + a_off);
+    }
+    keep_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kDwRows / 16; ++ks) {
+      const __nv_bfloat16* bh = sb + 2 * kDwTileA + ks * 128;
+      wgmma_m64n128k16(acc, ah[ks], dw_desc(bh));
+      wgmma_m64n128k16(acc, ah[ks], dw_desc(bh + kDwTileB));
+      wgmma_m64n128k16(acc, al[ks], dw_desc(bh));
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    // chunk c + 1's split beside chunk c's products, into the other buffer,
+    // whose last reader (chunk c - 1's products) ended before the barrier
+    if (c + 1 < chunks) {
+      cp_async_wait<kDwStages - 2>();  // this thread's copies of chunk c + 1
+      // into chunk c's slot, which only this thread's split read
+      fetch(c + kDwStages);
+      split(c + 1);
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    keep_regs(acc);
+    keep_regs(ah);
+    keep_regs(al);
+    fence_proxy_async();
+    __syncthreads();  // chunk c + 1 split; chunk c's products ended
+  }
+  const int h = h0 + wu + grp;
+  if (h >= hidden) return;  // H is a multiple of 16: the warp's 16 units
+  float* out = part + ((size_t)blockIdx.y * 2 + d) * hidden * four_h;
+#pragma unroll
+  for (int j = 0; j < kDwTK / 8; ++j) {
+    const int k = k0 + 8 * j + 2 * tig;
+    if (k >= four_h) continue;
+    *reinterpret_cast<float2*>(out + (size_t)h * four_h + k) =
+        make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(out + (size_t)(h + 8) * four_h + k) =
+        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// the plan (ops/lstm_train.plan_dw): rows a multiple of kDwRows, every
+// split non-empty, the splits covering the N (L-1) rows, a CTA per tile
+bool dw_plan_ok(int n, int seq_len, int hidden, int rows, int splits,
+                int grid_x) {
+  if (n <= 0 || seq_len < 2 || hidden < 16 || hidden % 16 || hidden > 256 ||
+      rows <= 0 || rows % kDwRows || splits <= 0 || splits > 65535)
+    return false;
+  const long long total = (long long)n * (seq_len - 1);
+  return total < 0x7fffffff - rows && grid_x == dw_tiles(hidden) &&
+         (long long)rows * (splits - 1) < total &&
+         (long long)rows * splits >= total;
+}
+
 bool bad_shape(int n, int seq_len, int hidden) {
   return n <= 0 || seq_len <= 0 || hidden <= 0 || hidden % 16 ||
          hidden > 16 * kMaxWarps;
@@ -1190,15 +1423,32 @@ __device__ __forceinline__ void cluster_gates(float (&acc)[4][4][4],
 // (e & 1) and the CTA's unit ug 16 + 2 grp + e / 2: elements e and e + 2
 // are one 8-byte pair of neighbouring units in device memory.
 
-// Forward. xp [n, L, 2, 4H] f32; w_hh [2, H, 4H] bf16; hs, cs [n, L, 2, H]
-// f32. grid (ceil(n / kClBN) kClC, 2), cluster (kClC, 1, 1). Shared: the w
-// slice, then bf16 h [2][kClBN][kClLdh] by step parity. Each step: xp of
-// this thread's fragments (loaded the step before) + w_slice^T . bf16
-// h_{t-1}, the cell in registers, hs and cs out, this CTA's slice of bf16
-// h_t into every peer's buffer through distributed shared memory, one
-// cluster barrier.
+// Two neighbouring xp values as loaded (an f32 pair, or a bf16 pair in 32
+// bits), and widened to f32. The forward keeps the loaded form in
+// registers until the next step: widening at the load would consume it
+// there, and each prefetch would wait for its load.
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const unsigned int*>(p));
+}
+__device__ __forceinline__ float2 widen_pair(float2 v) { return v; }
+__device__ __forceinline__ float2 widen_pair(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// Forward, training's (kTrain: hs and cs out, xp f32) and inference's (hs
+// only, xp f32 or bf16 widened on load). xp [n, L, 2, 4H]; w_hh [2, H, 4H]
+// bf16; hs, cs [n, L, 2, H] f32. grid (ceil(n / kClBN) kClC, 2), cluster
+// (kClC, 1, 1). Shared: the w slice, then bf16 h [2][kClBN][kClLdh] by step
+// parity. Each step: xp of this thread's fragments (loaded the step before)
+// + w_slice^T . bf16 h_{t-1}, the cell in registers, hs (and cs) out, this
+// CTA's slice of bf16 h_t into every peer's buffer through distributed
+// shared memory, one cluster barrier.
+template <bool kTrain, typename XpT>
 __global__ void __launch_bounds__(kClThreads, 1)
-lstm_fwd_cluster_kernel(const float* __restrict__ xp,
+lstm_fwd_cluster_kernel(const XpT* __restrict__ xp,
                         const __nv_bfloat16* __restrict__ w_hh,
                         float* __restrict__ hs, float* __restrict__ cs, int n,
                         int seq_len) {
@@ -1224,20 +1474,18 @@ lstm_fwd_cluster_kernel(const float* __restrict__ xp,
     s_h[i] = __float2bfloat16_rn(0.0f);  // h_{-1} = 0
   copy_w_slice(s_w, w_hh + (size_t)dir * kClH * 4 * kClH, rank, tid);
 
-  // pair li of xp at step s: gate li / 8, n-tile li / 2 % 4, elements
-  // li % 2 and li % 2 + 2; zero past n
-  auto load_xp = [&](int s, int li, float (&v)[4][4][4]) {
-    const int g = li / 8, nt = li / 2 % 4, par = li % 2;
+  // pair li of xp at step s, as loaded: gate li / 8, n-tile li / 2 % 4,
+  // elements li % 2 and li % 2 + 2; zero past n
+  using Pair = decltype(load_pair(xp));
+  auto load_xp = [&](int s, int li, Pair (&v)[32]) {
+    const int nt = li / 2 % 4, par = li % 2;
     const int row = n0 + rw + nt * 8 + 2 * tig + par;
-    const float2 x =
-        row < n ? __ldg(reinterpret_cast<const float2*>(
-                      xp + (((size_t)row * seq_len + time_of(s)) * 2 + dir) *
-                               4 * kClH + g * kClH + jg))
-                : make_float2(0.0f, 0.0f);
-    v[g][nt][par] = x.x;
-    v[g][nt][par + 2] = x.y;
+    v[li] = row < n ? load_pair(xp + (((size_t)row * seq_len + time_of(s)) *
+                                          2 + dir) * 4 * kClH +
+                                (li / 8) * kClH + jg)
+                    : Pair{};
   };
-  float xcur[4][4][4];
+  Pair xcur[32];
 #pragma unroll
   for (int li = 0; li < 32; ++li) load_xp(0, li, xcur);
   float c[4][4];
@@ -1256,11 +1504,11 @@ lstm_fwd_cluster_kernel(const float* __restrict__ xp,
     cluster_wait();
     float acc[4][4][4];
 #pragma unroll
-    for (int g = 0; g < 4; ++g)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[g][nt][e] = xcur[g][nt][e];
+    for (int li = 0; li < 32; ++li) {
+      const float2 x = widen_pair(xcur[li]);
+      acc[li / 8][li / 2 % 4][li % 2] = x.x;
+      acc[li / 8][li / 2 % 4][li % 2 + 2] = x.y;
+    }
     // the next step's xp, two pairs a k-tile, in flight during the step
     const bool more = s + 1 < seq_len;
     cluster_gates(acc, s_w, s_h + (s & 1) * kClBN * kClLdh + h_row, ug, lane,
@@ -1299,8 +1547,9 @@ lstm_fwd_cluster_kernel(const float* __restrict__ xp,
               (((size_t)row * seq_len + t) * 2 + dir) * kClH + jg;
           *reinterpret_cast<float2*>(hs + o) = make_float2(h[par],
                                                            h[par + 2]);
-          *reinterpret_cast<float2*>(cs + o) =
-              make_float2(c[nt][par], c[nt][par + 2]);
+          if constexpr (kTrain)
+            *reinterpret_cast<float2*>(cs + o) =
+                make_float2(c[nt][par], c[nt][par + 2]);
         }
       }
     }
@@ -1674,6 +1923,7 @@ int launch_cluster(Kernel kernel, int& resident, int smem, int grid_x,
 
 int g_fwd_resident = 0;
 int g_bwd_resident = 0;
+int g_infer_resident[2] = {0, 0};  // f32 xp, bf16 xp
 
 }  // namespace
 
@@ -1717,23 +1967,23 @@ extern "C" int nsp_lstm_bwd(const void* xp, const void* wpk_t,
   return (int)cudaGetLastError();
 }
 
-// part: scratch [splits, 2, H, 4H] f32; dw [2, H, 4H] bf16
+// part: scratch [splits, 2, H, 4H] f32; dw [2, H, 4H] bf16. rows, splits,
+// smem and grid_x are the wrapper's plan (ops/lstm_train.plan_dw), checked
+// here: kPlanError where it does not match the shape.
 extern "C" int nsp_lstm_dw(const void* dxp, const void* hs, void* part,
-                           void* dw, int n, int seq_len, int hidden,
-                           int splits, void* stream) {
-  if (bad_shape(n, seq_len, hidden) || splits <= 0)
-    return (int)cudaErrorInvalidValue;
+                           void* dw, int n, int seq_len, int hidden, int rows,
+                           int splits, int smem, int grid_x, void* stream) {
+  if (!dw_plan_ok(n, seq_len, hidden, rows, splits, grid_x) ||
+      smem != dw_smem_bytes() || smem > kSmemMax)
+    return kPlanError;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long rows = (long long)n * (seq_len - 1);
-  long long chunk = (rows + splits - 1) / splits;
-  chunk = (chunk + kRows - 1) / kRows * kRows;
-  if (chunk > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  dim3 grid((4 * hidden + kTile - 1) / kTile, (hidden + kTile - 1) / kTile,
-            2 * splits);
-  lstm_dw_partial_kernel<<<grid, 256, 0, st>>>(
+  cudaError_t err = cudaFuncSetAttribute(
+      lstm_dw_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  lstm_dw_tc_kernel<<<dim3(grid_x, splits, 2), kDwThreads, smem, st>>>(
       static_cast<const float*>(dxp), static_cast<const float*>(hs),
-      static_cast<float*>(part), n, seq_len, hidden, splits, (int)chunk);
-  cudaError_t err = cudaGetLastError();
+      static_cast<float*>(part), n, seq_len, hidden, rows);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int size = 2 * hidden * 4 * hidden;
   lstm_dw_sum_kernel<<<(size + 255) / 256, 256, 0, st>>>(
@@ -1783,12 +2033,37 @@ extern "C" int nsp_lstm_fwd_cluster(const void* xp, const void* w_hh,
   if (!cluster_plan_ok(n, seq_len, hidden, csize, bn, grid_x) ||
       smem != fwd_cluster_bytes() || smem > kSmemMax)
     return kPlanError;
-  return launch_cluster(lstm_fwd_cluster_kernel, g_fwd_resident, smem, grid_x,
-                        static_cast<cudaStream_t>(stream),
+  return launch_cluster(lstm_fwd_cluster_kernel<true, float>, g_fwd_resident,
+                        smem, grid_x, static_cast<cudaStream_t>(stream),
                         static_cast<const float*>(xp),
                         static_cast<const __nv_bfloat16*>(w_hh),
                         static_cast<float*>(hs), static_cast<float*>(cs), n,
                         seq_len);
+}
+
+// Inference on the cluster path: the forward without the c_t stream, xp
+// f32 (xp_bf16 = 0) or bf16; the plan (ops/lstm_train.plan_infer) as the
+// training forward's, checked the same way.
+extern "C" int nsp_lstm_infer_cluster(const void* xp, int xp_bf16,
+                                      const void* w_hh, void* hs, int n,
+                                      int seq_len, int hidden, int csize,
+                                      int bn, int smem, int grid_x,
+                                      void* stream) {
+  if (!cluster_plan_ok(n, seq_len, hidden, csize, bn, grid_x) ||
+      smem != fwd_cluster_bytes() || smem > kSmemMax)
+    return kPlanError;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(w_hh);
+  float* h = static_cast<float*>(hs);
+  if (xp_bf16)
+    return launch_cluster(lstm_fwd_cluster_kernel<false, __nv_bfloat16>,
+                          g_infer_resident[1], smem, grid_x, st,
+                          static_cast<const __nv_bfloat16*>(xp), w, h,
+                          static_cast<float*>(nullptr), n, seq_len);
+  return launch_cluster(lstm_fwd_cluster_kernel<false, float>,
+                        g_infer_resident[0], smem, grid_x, st,
+                        static_cast<const float*>(xp), w, h,
+                        static_cast<float*>(nullptr), n, seq_len);
 }
 
 // the sweep alone: dW is lstm_dw_reduce's (nsp_lstm_dw)
@@ -1818,5 +2093,6 @@ extern "C" int nsp_lstm_cluster_occupancy(int sweep, int smem) {
   if (smem != (sweep ? bwd_cluster_bytes() : fwd_cluster_bytes()))
     return kPlanError;
   return sweep ? cluster_occupancy(lstm_bwd_cluster_kernel, smem)
-               : cluster_occupancy(lstm_fwd_cluster_kernel, smem);
+               : cluster_occupancy(lstm_fwd_cluster_kernel<true, float>,
+                                   smem);
 }

@@ -17,7 +17,10 @@ of `bilstm_encoder_pallas`. Four wrappers around the CUDA kernels of
                          `_bwd_kernel` (pallas_lstm.py:235).
   lstm_dw_reduce         (dxp, hs) -> dW_hh, the dW accumulation that
                          `_bwd_kernel` runs in its body (per batch tile, in
-                         VMEM) and its wrapper sums over tiles.
+                         VMEM) and its wrapper sums over tiles: on the
+                         tensor cores, each f32 operand split into bf16 hi
+                         + lo, three products, over the row splits of
+                         `plan_dw(n, L, H)`, added in split order.
 
 `plan_train(n, L, H)` picks the training kernels' path:
 
@@ -37,6 +40,10 @@ of `bilstm_encoder_pallas`. Four wrappers around the CUDA kernels of
            csize=4)` is that order). dW by `lstm_dw_reduce`.
   packed   every other H: w_hh packed in fragment order on every call and
            re-read from L2 every step, dW by `lstm_dw_reduce`.
+
+`plan_infer(n, L, H)` picks the inference kernel's: `cluster` at H=256 (the
+training forward's kernel without the cell-state stream, nothing packed),
+`packed` at every other H.
 
 `lstm_recurrence(xp, w_hh)` takes the inference kernel when no gradient is
 wanted and the autograd op over the training kernels otherwise.
@@ -63,7 +70,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from .bilstm import CLUSTER, LAUNCHES, SMEM_MAX, pack_a_fragments
+from .bilstm import CLUSTER, LAUNCHES, SM_COUNT, SMEM_MAX, pack_a_fragments
 
 # csrc/lstm_train.cu: the smem path's batch tile and the H it is built for
 TRAIN_BN = 32
@@ -75,6 +82,11 @@ CLUSTER_HIDDEN = 256
 # (cudaOccupancyMaxActiveClusters, PERF.md): a plan's clusters beyond
 # these run in a second round
 CLUSTERS_RESIDENT = 30
+# the dW kernel (csrc/lstm_train.cu kDwTH, kDwTK, kDwRows, kDwStages): a
+# CTA's dW tile (units, gate columns), rows a chunk, f32 chunks in its ring
+DW_TILE = (128, 128)
+DW_CHUNK = 32
+DW_STAGES = 4
 
 
 class TrainPlan(NamedTuple):
@@ -83,8 +95,8 @@ class TrainPlan(NamedTuple):
     the packed sweep's is half the forward's), `grid` (blocks along N,
     directions), `fwd_smem` / `bwd_smem` bytes of shared memory a block,
     `dw_tiles` partial dW sums added in order (the smem sweep's batch
-    tiles, or `lstm_dw_reduce`'s row splits), `cluster` CTAs a cluster
-    (1 off the cluster path)."""
+    tiles, or `plan_dw`'s row splits), `cluster` CTAs a cluster (1 off
+    the cluster path)."""
     path: str
     bn: int
     grid: Tuple[int, int]
@@ -150,11 +162,84 @@ def plan_train(n: int, seq_len: int, hidden: int) -> TrainPlan:
         csize, bn = CLUSTER
         fwd, bwd = cluster_smem_bytes(hidden, csize, bn)
         return TrainPlan("cluster", bn, (-(-n // bn) * csize, 2), fwd, bwd,
-                         dw_splits(n, seq_len, hidden), csize)
+                         plan_dw(n, seq_len, hidden).splits, csize)
     # the packed kernels (csrc/lstm_train.cu kFwdNT, kBwdNT, launch_fwd)
     return TrainPlan("packed", 32, (-(-n // 32), 2), 32 * (hidden + 8) * 2,
                      16 * (5 * hidden + 16) * 2,
-                     dw_splits(n, seq_len, hidden))
+                     plan_dw(n, seq_len, hidden).splits)
+
+
+class InferPlan(NamedTuple):
+    """How the inference kernel runs one call: `path` "cluster" or
+    "packed", `bn` batch rows a block (a cluster's on the cluster path),
+    `grid` (blocks along N, directions), `smem` bytes of shared memory a
+    block, `cluster` CTAs a cluster (1 on the packed path)."""
+    path: str
+    bn: int
+    grid: Tuple[int, int]
+    smem: int
+    cluster: int = 1
+
+
+def plan_infer(n: int, seq_len: int, hidden: int) -> InferPlan:
+    """The inference kernel's plan: at H=256 the cluster path, the
+    training forward's kernel and plan without the cell-state stream (N =
+    8192 is 256 clusters, nine rounds of the 30 resident); at every other
+    H the packed kernel (w_hh packed on every call, 32 rows a block).
+    Raises ValueError for a shape no kernel takes."""
+    if n < 1 or seq_len < 1 or hidden < 16 or hidden % 16 or hidden > 256:
+        raise ValueError(f"no inference kernel plan for N={n}, L={seq_len}, "
+                         f"H={hidden}: H must be a multiple of 16 up to 256")
+    if hidden == CLUSTER_HIDDEN:
+        csize, bn = CLUSTER
+        return InferPlan("cluster", bn, (-(-n // bn) * csize, 2),
+                         cluster_smem_bytes(hidden, csize, bn)[0], csize)
+    # csrc/lstm_train.cu launch_fwd: kFwdNT n-tiles of 8 rows a block
+    return InferPlan("packed", 32, (-(-n // 32), 2), 32 * (hidden + 8) * 2)
+
+
+class DwPlan(NamedTuple):
+    """How `lstm_dw_reduce` runs one call: `rows` of the M = N (L-1) rows
+    a split (a multiple of DW_CHUNK; split s sums rows [s rows, (s+1) rows)
+    of each direction), `splits` partials added in split order (0 where M
+    is 0: nothing to launch), `grid` (DW_TILE tiles of dW, splits,
+    directions), `smem` bytes of shared memory a CTA."""
+    rows: int
+    splits: int
+    grid: Tuple[int, int, int]
+    smem: int
+
+
+def dw_smem_bytes() -> int:
+    """Shared memory of the dW CTA: DW_STAGES f32 chunks of its A and B
+    columns, two buffers of its bf16 hi and lo tiles (A [DW_CHUNK][th + 8],
+    B as 8x8 core matrices, each column group's padded by 16 bytes)
+    (csrc/lstm_train.cu dw_smem_bytes)."""
+    th, tk = DW_TILE
+    a_tile = DW_CHUNK * (th + 8) * 2
+    b_tile = tk // 8 * (DW_CHUNK // 8 * 128 + 16)
+    return DW_STAGES * DW_CHUNK * (th + tk) * 4 + 2 * 2 * (a_tile + b_tile)
+
+
+def plan_dw(n: int, seq_len: int, hidden: int) -> DwPlan:
+    """`lstm_dw_reduce`'s plan for N rows, L steps, H units: one CTA per
+    (dW tile, row split, direction), one an SM, with as many splits as
+    keep the CTAs within one wave of the card's SMs (4 at H=256: 128 CTAs),
+    each split a whole number of chunks and none empty. Raises ValueError
+    for a shape no kernel takes."""
+    if n < 1 or seq_len < 1 or hidden < 16 or hidden % 16 or hidden > 256:
+        raise ValueError(f"no dW kernel plan for N={n}, L={seq_len}, "
+                         f"H={hidden}: H must be a multiple of 16 up to 256")
+    th, tk = DW_TILE
+    tiles = -(-hidden // th) * -(-4 * hidden // tk)
+    total = n * (seq_len - 1)
+    if total == 0:
+        return DwPlan(0, 0, (tiles, 0, 2), dw_smem_bytes())
+    chunks = -(-total // DW_CHUNK)
+    per = -(-chunks // min(max(1, SM_COUNT // (2 * tiles)), chunks))
+    rows = per * DW_CHUNK
+    splits = -(-total // rows)
+    return DwPlan(rows, splits, (tiles, splits, 2), dw_smem_bytes())
 
 
 def _check(xp, w_hh, *states) -> None:
@@ -332,7 +417,7 @@ def _raise_on(err, name, n, seq_len, hidden):
 
 def lstm_recurrence_infer(xp, w_hh):
     """xp [N, L, 2, 4H] f32 or bf16, w_hh [2, H, 4H] -> hs [N, L, 2, H]
-    f32. No gradient flows through it."""
+    f32. No gradient flows through it. The kernel of `plan_infer`."""
     _check(xp, w_hh)
     if xp.device.type == "cpu":
         with torch.no_grad():
@@ -347,11 +432,19 @@ def lstm_recurrence_infer(xp, w_hh):
     hs = torch.empty(n, seq_len, 2, hidden, dtype=torch.float32,
                      device=xp.device)
     if n and seq_len:
-        wpk = pack_a_fragments(w_hh.detach().transpose(1, 2))
+        plan = plan_infer(n, seq_len, hidden)
+        lib = library("lstm_train")
         with torch.cuda.device(xp.device):
-            err = library("lstm_train").nsp_lstm_infer(
-                xp.data_ptr(), int(xp_bf16), wpk.data_ptr(), hs.data_ptr(),
-                n, seq_len, hidden, _stream(xp))
+            if plan.path == "cluster":
+                err = lib.nsp_lstm_infer_cluster(
+                    xp.data_ptr(), int(xp_bf16), w_hh.data_ptr(),
+                    hs.data_ptr(), n, seq_len, hidden, plan.cluster, plan.bn,
+                    plan.smem, plan.grid[0], _stream(xp))
+            else:
+                wpk = pack_a_fragments(w_hh.detach().transpose(1, 2))
+                err = lib.nsp_lstm_infer(
+                    xp.data_ptr(), int(xp_bf16), wpk.data_ptr(),
+                    hs.data_ptr(), n, seq_len, hidden, _stream(xp))
         _raise_on(err, "lstm_recurrence_infer", n, seq_len, hidden)
         LAUNCHES["lstm_recurrence_infer"] += 1
     return hs
@@ -455,17 +548,10 @@ def cluster_occupancy(sweep: bool) -> int:
     return got
 
 
-def dw_splits(n: int, seq_len: int, hidden: int) -> int:
-    """How many row blocks the dW kernel sums separately (then in order):
-    enough blocks for about four per SM of an H100, at least 64 rows each."""
-    tiles = 2 * -(-4 * hidden // 64) * -(-hidden // 64)
-    rows = n * max(seq_len - 1, 0)
-    return max(1, min(-(-528 // tiles), rows // 64))
-
-
 def lstm_dw_reduce(dxp, hs):
     """dxp [N, L, 2, 4H] f32, hs [N, L, 2, H] f32 -> dW_hh [2, H, 4H] bf16:
-    the f32 sum in a fixed order, rounded to bf16 once."""
+    the f32 sum over `plan_dw`'s row splits, added in split order, rounded
+    to bf16 once."""
     if dxp.dim() != 4 or hs.dim() != 4 or tuple(dxp.shape[:3]) != tuple(
             hs.shape[:3]) or dxp.shape[3] != 4 * hs.shape[3]:
         raise ValueError(f"expected dxp [N, L, 2, 4H] and hs [N, L, 2, H], "
@@ -479,18 +565,21 @@ def lstm_dw_reduce(dxp, hs):
 
     n, seq_len, _, hidden = hs.shape
     _check_kernel_inputs(hidden, (dxp, hs))
-    dw = torch.zeros(2, hidden, 4 * hidden, dtype=torch.bfloat16,
-                     device=dxp.device)
-    if n and seq_len > 1:
-        splits = dw_splits(n, seq_len, hidden)
-        part = torch.empty(splits, 2, hidden, 4 * hidden, dtype=torch.float32,
+    if not n or seq_len < 2:
+        return torch.zeros(2, hidden, 4 * hidden, dtype=torch.bfloat16,
                            device=dxp.device)
-        with torch.cuda.device(dxp.device):
-            err = library("lstm_train").nsp_lstm_dw(
-                dxp.data_ptr(), hs.data_ptr(), part.data_ptr(), dw.data_ptr(),
-                n, seq_len, hidden, splits, _stream(dxp))
-        _raise_on(err, "lstm_dw_reduce", n, seq_len, hidden)
-        LAUNCHES["lstm_dw_reduce"] += 1
+    plan = plan_dw(n, seq_len, hidden)
+    dw = torch.empty(2, hidden, 4 * hidden, dtype=torch.bfloat16,
+                     device=dxp.device)
+    part = torch.empty(plan.splits, 2, hidden, 4 * hidden,
+                       dtype=torch.float32, device=dxp.device)
+    with torch.cuda.device(dxp.device):
+        err = library("lstm_train").nsp_lstm_dw(
+            dxp.data_ptr(), hs.data_ptr(), part.data_ptr(), dw.data_ptr(), n,
+            seq_len, hidden, plan.rows, plan.splits, plan.smem, plan.grid[0],
+            _stream(dxp))
+    _raise_on(err, "lstm_dw_reduce", n, seq_len, hidden)
+    LAUNCHES["lstm_dw_reduce"] += 1
     return dw
 
 
@@ -526,7 +615,8 @@ def lstm_recurrence(xp, w_hh):
 
 
 # (FLOP, bytes) each call must do and move: each input read once, each
-# output written once. Products in bf16 on the tensor cores except dW (f32).
+# output written once. Products in bf16 on the tensor cores; dW's f32
+# product as the three bf16 products of its split operands.
 def infer_cost(n: int, seq_len: int, hidden: int, xp_bytes: int = 4):
     flop = 2 * (2 * n * seq_len) * 4 * hidden * hidden
     return flop, (n * seq_len * 2 * 4 * hidden * xp_bytes
@@ -549,6 +639,8 @@ def bwd_cost(n: int, seq_len: int, hidden: int):
 
 
 def dw_cost(n: int, seq_len: int, hidden: int):
+    """Three bf16 products (hi hi, hi lo, lo hi) of both directions' rows;
+    both f32 operands read once, dW written once."""
     rows = 2 * n * max(seq_len - 1, 0)
-    return (2 * rows * hidden * 4 * hidden,
+    return (3 * 2 * rows * hidden * 4 * hidden,
             rows * 5 * hidden * 4 + 2 * hidden * 4 * hidden * 2)

@@ -5,14 +5,16 @@
 On the card only. Builds an instrumented copy of csrc/lstm_train.cu into
 ops/build/ (the source in the package is not touched): thread 0 of the
 first CTA of the cluster path's forward and sweep writes clock64() at the
-phase boundaries of every step. Runs both kernels at the haplotype model's
-training shape (N=512, H=256) and prints one JSON line: the kernel's time
-(CUDA events), SM cycles a step, and the mean cycles of each phase over the
-steady steps (the first and, in the sweep, the last left out). A stamp is
-taken where thread 0 gets to, so a phase holds thread 0's own work plus
-its waits at the barriers that close it. `--no-stores` is a knock-out: it
-drops the kernels' stores of hs, cs and dxp to device memory, to show
-their share (the outputs are then wrong).
+phase boundaries of every step (the forward's template stamps its
+inference instantiations too; only the training ones run here). Runs both
+kernels at the haplotype model's training shape (N=512, H=256) and
+prints one JSON line: the kernel's time (CUDA events), SM cycles a step,
+and the mean cycles of each phase over the steady steps (the first and,
+in the sweep, the last left out). A stamp is taken where thread 0 gets
+to, so a phase holds thread 0's own work plus its waits at the barriers
+that close it. `--no-stores` is a knock-out: it drops the kernels' stores
+of hs, cs and dxp to device memory, to show their share (the outputs are
+then wrong).
 """
 from __future__ import annotations
 
@@ -92,7 +94,7 @@ def instrument(src: str, no_stores: bool = False) -> str:
     """csrc/lstm_train.cu with the stamps (and, with no_stores, without the
     cluster kernels' stores of hs, cs and dxp) and `nsp_stamps(out)`, which
     copies the int64 [MAX_STEPS, 16] stamps to a host buffer."""
-    fwd = src.index("lstm_fwd_cluster_kernel(const float*")
+    fwd = src.index("lstm_fwd_cluster_kernel(const XpT*")
     bwd = src.index("lstm_bwd_cluster_kernel(const float*")
     end = src.index("int fwd_cluster_bytes()")
     head, f, b, tail = src[:fwd], src[fwd:bwd], src[bwd:end], src[end:]

@@ -1,12 +1,14 @@
 """The port's inference recurrence (`lstm_recurrence_infer`) against the
-JAX package's `_kernel`, and the dispatch of `lstm_recurrence`.
+JAX package's `_kernel`, its plan, and the dispatch of `lstm_recurrence`.
 
 On the CPU the wrapper runs its plain PyTorch version, which keeps the
-CUDA kernel's cast sites. It is held against `bilstm_layer_pallas`
-(interpret mode, no differentiation: the primal `_kernel` with f32 xp) and
-against `bilstm_encoder_pallas(fused=False)` (xp rounded to bf16 before
-the kernel). The CUDA kernel is held against the same plain version on the
-card by chip_smoke.py.
+CUDA kernels' cast sites. It is held against `bilstm_layer_pallas`
+(interpret mode, no differentiation: the primal `_kernel`, with f32 xp and,
+at the CatModel's width, bf16 xp too) and against
+`bilstm_encoder_pallas(fused=False)` (xp rounded to bf16 before the
+kernel). `plan_infer` takes the cluster forward at H=256 and the packed
+kernel elsewhere. The CUDA kernels are held against the same plain version
+on the card by chip_smoke.py.
 """
 import numpy as np
 import pytest
@@ -20,7 +22,8 @@ from nanosnp_tpu.ops.pallas_lstm import (bilstm_encoder_pallas,
 from nanosnp_tpu_torch.models.bilstm import BiLSTM, bilstm_encoder_unfused
 from nanosnp_tpu_torch.models.convert import params_from_jax
 from nanosnp_tpu_torch.ops import lstm_train as T
-from nanosnp_tpu_torch.ops.bilstm import LAUNCHES, reset_launch_counts
+from nanosnp_tpu_torch.ops.bilstm import (CLUSTER, LAUNCHES, SMEM_MAX,
+                                          reset_launch_counts)
 
 # bf16 cast sites on both sides (w_hh and h_{t-1} rounded to bf16, f32
 # accumulation, f32 cell): what remains is f32 summation order, which can
@@ -63,6 +66,59 @@ def test_infer_f32_xp_matches_pallas_primal(n, seq_len, hidden):
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
     np.testing.assert_allclose(got.numpy(), want, atol=BF16_TOL, rtol=0)
     assert np.median(np.abs(got.numpy() - want)) < 1e-5
+
+
+@pytest.mark.parametrize("xp_dtype", [jnp.float32, jnp.bfloat16])
+def test_infer_at_the_catmodel_width_matches_pallas_primal(xp_dtype):
+    """H=256, L=11 (the CatModel's recurrences, the cluster path on the
+    card), a few rows; bf16 xp is widened on load on both sides."""
+    n, seq_len, hidden = 3, 11, 256
+    xp, w_hh = _inputs(41, n, seq_len, hidden)
+    xp_j = jnp.asarray(_to_jax_layout(xp)).astype(xp_dtype)
+    want = _from_jax_layout(np.asarray(bilstm_layer_pallas(
+        xp_j, jnp.asarray(w_hh), block_n=8, interpret=True)))
+    xp_t = torch.from_numpy(_from_jax_layout(np.asarray(
+        xp_j.astype(jnp.float32))))
+    if xp_dtype == jnp.bfloat16:
+        xp_t = xp_t.bfloat16()        # exact: the values are bf16 already
+    assert T.plan_infer(n, seq_len, hidden).path == "cluster"
+    got = T.lstm_recurrence_infer(xp_t, torch.from_numpy(w_hh).bfloat16())
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=BF16_TOL, rtol=0)
+    assert np.median(np.abs(got.numpy() - want)) < 1e-5
+
+
+@pytest.mark.parametrize("n", [1, 65, 3001, 8192])
+def test_plan_infer_takes_the_cluster_path_at_256(n):
+    """The training forward's cluster plan, without its cell-state stream:
+    C=4, 64 rows a cluster, the same shared memory; N=8192 is 256
+    clusters, nine rounds of the 30 resident."""
+    plan = T.plan_infer(n, 11, 256)
+    train = T.plan_train(n, 11, 256)
+    assert plan.path == "cluster" and (plan.cluster, plan.bn) == CLUSTER
+    assert plan.grid == train.grid == (-(-n // 64) * 4, 2)
+    assert plan.smem == train.fwd_smem == T.cluster_smem_bytes()[0] \
+        <= SMEM_MAX
+    clusters = plan.grid[0] // plan.cluster * plan.grid[1]
+    if n == 8192:
+        assert clusters == 256
+        assert -(-clusters // T.CLUSTERS_RESIDENT) == 9
+
+
+@pytest.mark.parametrize("hidden", [16, 64, 128])
+def test_plan_infer_takes_the_packed_path_off_256(hidden):
+    plan = T.plan_infer(3001, 33, hidden)
+    assert plan.path == "packed" and plan.cluster == 1
+    assert plan.grid == (-(-3001 // 32), 2)
+    assert plan.smem == 32 * (hidden + 8) * 2
+
+
+@pytest.mark.parametrize("n,seq_len,hidden",
+                         [(5, 3, 72), (5, 3, 8), (5, 3, 0), (0, 3, 64),
+                          (5, 0, 64), (5, 3, 272)])
+def test_plan_infer_refuses_what_no_kernel_takes(n, seq_len, hidden):
+    with pytest.raises(ValueError):
+        T.plan_infer(n, seq_len, hidden)
 
 
 def _layers(rng, d_in, hidden, n_layers):

@@ -181,5 +181,8 @@ def test_costs_count_each_stream_once():
     flop_b, _ = T.bwd_cost(2000, 33, 64)
     assert flop_b == 2 * flop
     flop_w, bytes_w = T.dw_cost(512, 33, 256)
-    assert flop_w == 2 * (2 * 512 * 32) * 256 * 1024
-    assert T.dw_splits(2000, 33, 64) * 8 >= 132
+    # three bf16 products (hi hi, hi lo, lo hi) of the split f32 operands
+    assert flop_w == 3 * 2 * (2 * 512 * 32) * 256 * 1024
+    assert bytes_w == 2 * 512 * 32 * 5 * 256 * 4 + 2 * 256 * 1024 * 2
+    plan = T.plan_dw(2000, 33, 64)
+    assert 120 <= plan.grid[0] * plan.grid[1] * plan.grid[2] <= 132

@@ -20,8 +20,17 @@ hold:
   mode;
 - the gate derivatives the sweep forms from the SFU gate formulas keep
   the bound stated here;
+- `plan_dw` (the tensor-core dW of `lstm_dw_reduce`) covers every row of
+  M = N (L-1) once in a fixed split order, fits a block's shared memory and
+  puts one wave of CTAs on the card at the trainers' shapes, and refuses
+  what no kernel takes; an emulation of the kernel's arithmetic (bf16 hi +
+  lo split, three products, f32 sums per split, splits in order) lies
+  within its stated bound of the exact product and, rounded, agrees with
+  `lstm_dw_reduce_plain` and the JAX package's Pallas `_bwd_kernel`;
 - the step-stamp tool (ops/step_stamps.py) finds each of its anchors in
-  the cluster kernels once, and averages the phases of the steady steps.
+  the cluster kernels once, and averages the phases of the steady steps;
+  the dW knock-out tool (ops/dw_knockouts.py) finds each of its parts in
+  the dW kernel once.
 """
 import numpy as np
 import pytest
@@ -33,6 +42,7 @@ from chip_smoke import TRAIN_SHAPES, TRAIN_TOL
 from nanosnp_tpu.ops.pallas_lstm import (_run_recurrence_bwd,
                                          _run_recurrence_train)
 from nanosnp_tpu_torch.ops import build
+from nanosnp_tpu_torch.ops import dw_knockouts as D
 from nanosnp_tpu_torch.ops import lstm_train as T
 from nanosnp_tpu_torch.ops import step_stamps as S
 from nanosnp_tpu_torch.ops.bilstm import SM_COUNT, SMEM_MAX, SMEM_SM
@@ -69,7 +79,7 @@ def test_plan_paths_fit_the_card(n, label, seq_len, hidden):
             assert plan.grid[0] * plan.grid[1] <= SM_COUNT
     else:
         assert plan.path == "cluster", label
-        assert plan.dw_tiles == T.dw_splits(n, seq_len, hidden)
+        assert plan.dw_tiles == T.plan_dw(n, seq_len, hidden).splits
 
 
 @pytest.mark.parametrize("n", [1, 17, 512, 513, 2000])
@@ -243,7 +253,7 @@ def test_step_stamps_instrument_the_cluster_kernels(no_stores):
         S.BWD_PHASES)
     assert out.count("== 12345.0f") == (2 if no_stores else 0)
     # the kernels before the cluster path's are left as they are
-    cut = src.index("lstm_fwd_cluster_kernel(const float*")
+    cut = src.index("lstm_fwd_cluster_kernel(const XpT*")
     assert out.replace(out[:out.index("namespace {")], "", 1).startswith(
         src[src.index("namespace {"):cut])
     # phases: stamp k to k + 1 over the steady steps, the last phase to the
@@ -259,3 +269,157 @@ def test_step_stamps_instrument_the_cluster_kernels(no_stores):
     for k in range(last):
         assert got[f"{k} {names[k]}"] == 10.0 * (2 * k + 1)
     assert got[f"{last} {names[last]}"] == 1000.0 - 10.0 * last * last
+
+
+# the shapes `lstm_dw_reduce` runs at: the haplotype trainer's two (the
+# cluster path), phase 1b's packed check, and the pileup trainer's (the smem
+# path sums dW in its sweep, but the wrapper takes any width)
+DW_SHAPES = [(s[2], s[4]) for s in TRAIN_SHAPES] + [(11, 128)]
+
+
+def _dw_rows(plan, total):
+    """The row ranges of the splits, in split order."""
+    return [range(k * plan.rows, min((k + 1) * plan.rows, total))
+            for k in range(plan.splits)]
+
+
+@pytest.mark.parametrize("n", [1, 17, 512, 513, 2000, 2001])
+@pytest.mark.parametrize("seq_len,hidden", DW_SHAPES)
+def test_dw_plan_covers_every_row_once(n, seq_len, hidden):
+    plan = T.plan_dw(n, seq_len, hidden)
+    total = n * (seq_len - 1)
+    assert plan.rows % T.DW_CHUNK == 0 and plan.splits >= 1
+    ranges = _dw_rows(plan, total)
+    assert all(len(r) > 0 for r in ranges)          # no split is empty
+    assert [m for r in ranges for m in r] == list(range(total))
+    tiles = -(-hidden // T.DW_TILE[0]) * -(-4 * hidden // T.DW_TILE[1])
+    assert plan.grid == (tiles, plan.splits, 2)
+    # the cluster and packed training plans sum the same splits
+    if hidden != 64:
+        assert T.plan_train(n, seq_len, hidden).dw_tiles == plan.splits
+
+
+@pytest.mark.parametrize("n,seq_len,hidden", [(512, 33, 256),
+                                              (512, 11, 256),
+                                              (512, 11, 128),
+                                              (2000, 33, 64)])
+def test_dw_plan_fits_the_card_at_the_trainers_shapes(n, seq_len, hidden):
+    plan = T.plan_dw(n, seq_len, hidden)
+    assert plan.smem == T.dw_smem_bytes() <= SMEM_MAX
+    assert SMEM_SM // (plan.smem + 1024) == 1       # one CTA an SM
+    ctas = plan.grid[0] * plan.grid[1] * plan.grid[2]
+    # one wave, and no more than a tenth of the SMs idle
+    assert 0.9 * SM_COUNT <= ctas <= SM_COUNT
+    if hidden == 256:
+        assert plan.splits == 4 and plan.grid == (16, 4, 2)
+
+
+@pytest.mark.parametrize("n,hidden", [(1, 256), (7, 128), (3, 16)])
+def test_dw_plan_at_one_step_launches_nothing(n, hidden):
+    plan = T.plan_dw(n, 1, hidden)
+    assert plan.splits == plan.rows == plan.grid[1] == 0
+    hs = torch.zeros(n, 1, 2, hidden)
+    dxp = torch.ones(n, 1, 2, 4 * hidden)
+    dw = T.lstm_dw_reduce(dxp, hs)
+    assert dw.dtype == torch.bfloat16 and not dw.float().any()
+
+
+@pytest.mark.parametrize("n,seq_len,hidden",
+                         [(5, 3, 72), (5, 3, 8), (5, 3, 0), (0, 3, 64),
+                          (5, 0, 64), (5, 3, 272)])
+def test_dw_plan_refuses_what_no_kernel_takes(n, seq_len, hidden):
+    with pytest.raises(ValueError):
+        T.plan_dw(n, seq_len, hidden)
+
+
+def _split_bf16(x):
+    """x as bf16 hi (its rounding) and lo (what hi leaves, rounded), in
+    f32: csrc/lstm_train.cu split2."""
+    hi = x.bfloat16().float()
+    return hi, (x - hi).bfloat16().float()
+
+
+def _dw_split_bf16(dxp, hs, plan):
+    """The dW kernel's arithmetic, before the bf16 rounding: per direction
+    and split of `plan.rows` rows, the three products (hi hi, hi lo, lo hi)
+    of the split operands summed in f32, the splits added in split order.
+    -> ([2, H, 4H] f32, the operands A [2, M, H] and B [2, M, 4H])."""
+    hidden = hs.shape[-1]
+    a = torch.stack([hs[:, :-1, 0], hs[:, 1:, 1]]).reshape(2, -1, hidden)
+    b = torch.stack([dxp[:, 1:, 0], dxp[:, :-1, 1]]).reshape(2, -1,
+                                                              4 * hidden)
+    total = None
+    for rows in _dw_rows(plan, a.shape[1]):
+        ah, al = _split_bf16(a[:, rows.start:rows.stop])
+        bh, bl = _split_bf16(b[:, rows.start:rows.stop])
+        at, alt = ah.transpose(1, 2), al.transpose(1, 2)
+        part = at @ bh + at @ bl + alt @ bh
+        total = part if total is None else total + part
+    return total, a, b
+
+
+# |x - (hi + lo)| <= 2^-16 |x| and |lo| <= (2^-8 + 2^-16) |x|, so each
+# product hi hi + hi lo + lo hi is within 3.1 * 2^-16 |a b| of a b (each
+# bf16 product is exact in f32); f32 sums of k terms add at most k 2^-24 of
+# the sum of their magnitudes: 3 terms a row, then the splits
+def _dw_bound(a, b, splits):
+    mag = a.double().abs().transpose(1, 2) @ b.double().abs()
+    return (3.1 * 2.0 ** -16 + (3 * a.shape[1] + splits) * 2.0 ** -24) * mag
+
+
+@pytest.mark.parametrize("n,seq_len,hidden", [(17, 11, 32), (5, 33, 16),
+                                              (9, 4, 64)])
+def test_split_bf16_dw_lies_within_its_bound(n, seq_len, hidden):
+    xp, w_hh, g_out = (torch.from_numpy(a) for a in
+                       _inputs(7 * n + seq_len, n, seq_len, hidden))
+    w = w_hh.bfloat16()
+    hs, cs = T.lstm_recurrence_train(xp, w)
+    dxp, _ = T.lstm_recurrence_bwd(xp, w, hs, cs, g_out, with_dw=False)
+    plan = T.plan_dw(n, seq_len, hidden)
+    got, a, b = _dw_split_bf16(dxp, hs, plan)
+    exact = a.double().transpose(1, 2) @ b.double()
+    assert ((got.double() - exact).abs() <= _dw_bound(a, b, plan.splits)
+            ).all()
+    # the bf16 products alone would miss it: the split is what keeps it
+    one = (a.bfloat16().float().transpose(1, 2)
+           @ b.bfloat16().float()).double()
+    assert ((one - exact).abs() > _dw_bound(a, b, plan.splits)).any()
+    torch.testing.assert_close(got.bfloat16().float(), T.lstm_dw_reduce_plain(
+        dxp, hs).float(), atol=DW_ATOL, rtol=DW_RTOL)
+
+
+@pytest.mark.parametrize("n,seq_len,hidden,block_n", [(13, 5, 16, 8),
+                                                      (16, 4, 32, 8)])
+def test_split_bf16_dw_matches_pallas_interpret(n, seq_len, hidden, block_n):
+    """Summed over the Pallas kernel's batch tiles and rounded to bf16 as
+    its VJP returns it, `_bwd_kernel`'s dW agrees with the split-bf16 sum
+    over `plan_dw`'s splits, rounded once."""
+    xp, w_hh, g_out = _inputs(5 * n + seq_len, n, seq_len, hidden)
+    n_pad = -(-n // block_n) * block_n
+    meta = dict(seq_len=seq_len, hidden=hidden, gate_dim=4 * hidden,
+                block_n=block_n, interpret=True)
+    xp_t = _to_kernel(xp, n_pad)
+    w_t = jnp.asarray(np.transpose(w_hh, (0, 2, 1))).astype(jnp.bfloat16)
+    hs, cs = _run_recurrence_train(xp_t, w_t, **meta)
+    dxp, dw_tiles = _run_recurrence_bwd(xp_t, w_t, hs, cs,
+                                        _to_kernel(g_out, n_pad), **meta)
+    want = np.transpose(np.asarray(dw_tiles.sum(axis=0).astype(jnp.bfloat16)
+                                   .astype(jnp.float32)), (0, 2, 1))
+    dxp_t = torch.from_numpy(_from_kernel(dxp, n))
+    hs_t = torch.from_numpy(_from_kernel(hs, n))
+    got, _, _ = _dw_split_bf16(dxp_t, hs_t, T.plan_dw(n, seq_len, hidden))
+    np.testing.assert_allclose(got.bfloat16().float().numpy(), want,
+                               atol=DW_ATOL, rtol=DW_RTOL)
+
+
+@pytest.mark.parametrize("variant", sorted(D.VARIANTS))
+def test_dw_knockouts_find_their_parts_in_the_dw_kernel(variant):
+    src = (build.CSRC / "lstm_train.cu").read_text()
+    out = D.knock_out(src, D.VARIANTS[variant])
+    k0, k1 = src.index(D.KERNEL), src.index(D.END)
+    # only the dW kernel changes, and only where a part is knocked out
+    assert out[:k0] == src[:k0]
+    assert out.endswith(src[k1:])
+    assert (out == src) == (variant == "all")
+    for old, new in D.VARIANTS[variant]:
+        assert old not in out[k0:out.index(D.END)] and new in out
