@@ -9,8 +9,9 @@
   phase 1  the BiLSTM layer kernels at every layer call of the main path:
            each shape's wrapper (`bilstm_stream` / `bilstm_center`) against
            its plain PyTorch version at N=3001 and, at H=256, at N=1, 65
-           and 2558; the cluster path's in-projection and recurrence each
-           against its own plain version; then at N=8192 the wrapper, the
+           and 2558, at H=64 at N=8191 (the tile of N=8192); the cluster
+           path's in-projection and recurrence each against its own plain
+           version; then at N=8192 the wrapper, the
            kernels alone (weights packed once), the plain version and cuDNN
            nn.LSTM (a yardstick only: the port never calls it); a
            `{"layers": [...]}` line.
@@ -28,13 +29,17 @@
            (yardsticks only).
   phase 1c holds the inference recurrence (f32 and bf16 xp; `plan_infer`:
            the cluster forward at the CatModel's H=256, the packed kernel
-           at the pileup shape's H=64) at N = 1, 65 and 3001, the center +
-           head kernel (24 and 96 head rows) and the two-layer kernel
-           against their plain versions, times them alone (weights packed
-           once beforehand; at H=256 the packed kernel beside the cluster
-           one) and through their wrappers beside cuDNN nn.LSTM in
-           inference mode (plus three torch.matmul for the head;
-           yardsticks only), and shows by the launch counts that
+           at the pileup shape's H=64), the center + head kernel (24 and
+           96 head rows) and the two-layer kernel (both on 2-CTA clusters)
+           against their plain versions at N = 1, 65, 3001 and 8191 (the
+           tile of N=8192), the fused kernels twice for the same bits;
+           times them alone (weights packed once beforehand; at H=256 the
+           packed kernel beside the cluster one) and through their
+           wrappers beside cuDNN nn.LSTM in inference mode (plus three
+           torch.matmul for the head; yardsticks only) and the per-layer
+           kernels of the fused kernels' routes, weights packed once,
+           alone and through their wrappers; prints the clusters
+           resident; and shows by the launch counts that
            `lstm_recurrence` takes the inference kernel without gradients
            and the training kernels with them.
   phase 1d the knock-out probe of the pileup model's first layer
@@ -89,7 +94,9 @@
 `python3 chip_smoke.py --train-times TREE` times the training kernels
 alone and through their wrappers and profiles both trainers' steps, with
 the package of TREE; `--train-turns PARENT` does so for PARENT and this
-tree in turns, parent, change, change, parent.
+tree in turns, parent, change, change, parent. `--fused-times TREE` and
+`--fused-turns PARENT` do the same for the two fused kernels and the
+per-layer kernels of their routes.
 
 Prints a `{"kernels": [...]}` line, then as the last line
 `{"ok": true, "device": {...}}`. Exits non-zero on any failure, when no
@@ -104,6 +111,7 @@ import shutil
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke_work")
@@ -117,6 +125,8 @@ PEAK_BYTES = 3.35e12
 SEED = 20261016
 N_CHECK = 3001          # not a multiple of either kernel tile (16 or 64)
 N_TIME = 8192           # the main path's batch
+N_WIDE = N_TIME - 1     # off the tiles, on the tile the H=64 plans take at
+                        # N_TIME (bn 64 or 128: 128 from N = 4225)
 N_RAGGED = (1, 65, 2558)  # more batch sizes off the tiles, at H=256
 STREAM_TOL = 1e-2       # bf16 output: two bf16 ulps near 1
 CENTER_TOL = 2e-3       # f32 output; the gap is f32 summation order
@@ -240,9 +250,9 @@ INFER_SHAPES = [
     ("pileup fused=False", 33, 18, 64),
 ]
 HEAD_ROWS = (24, 96)    # gt + zy, and all four heads (rows padded to 8)
-# batch sizes of the inference recurrence's check: one row, one past the
-# cluster path's tile of 64, and N_CHECK
-N_INFER_CHECK = (1, 65, N_CHECK)
+# batch sizes of the inference recurrence's and the fused kernels' checks:
+# one row, one past a tile of 64, N_CHECK (off every tile) and N_WIDE
+N_INFER_CHECK = (1, 65, N_CHECK, N_WIDE)
 
 # H100 SXM f32 peak outside the tensor cores (NVIDIA data sheet): the floor
 # of an f32 SIMT dW product (lstm_dw_reduce's design before the tensor
@@ -272,7 +282,8 @@ DW_TOL = 1e-2
 def phase_kernels(dev):
     """Phase 1: the BiLSTM layer kernels at every layer call of the main
     path. Each shape through its wrapper against the plain version at
-    N_CHECK and, at H=256, at the ragged N_RAGGED; the cluster path's two
+    N_CHECK and, at H=256, at the ragged N_RAGGED, at H=64 at N_WIDE (the
+    fused plan's tile at N_TIME); the cluster path's two
     kernels each against its own plain version; then at N_TIME the wrapper
     (which packs the weights every call), the kernels alone (weights packed
     once, as a model does), the plain version and cuDNN nn.LSTM (a
@@ -313,7 +324,7 @@ def phase_kernels(dev):
         # first layers see counts / statistics, inner layers h in (-1, 1)
         x_scale = 8.0 if d_in in (18, 105) else 1.0
         errs = []
-        for n in (N_CHECK,) + (N_RAGGED if hidden == 256 else ()):
+        for n in (N_CHECK,) + (N_RAGGED if hidden == 256 else (N_WIDE,)):
             args = inputs(n, seq_len, d_in, hidden, x_scale)
             got = kern(*args)
             torch.cuda.synchronize()
@@ -732,26 +743,177 @@ def train_kernel_times(dev):
     return out
 
 
-def train_turns(parent):
-    """`python3 chip_smoke.py --train-turns PARENT`: `train_kernel_times`
-    of the tree at PARENT (a `git archive` of the parent commit) and of
-    this tree in turns, parent, change, change, parent, each in its own
-    process; returns their rows, which `main` prints as one JSON line."""
+def _turns(kind, parent):
+    """`python3 chip_smoke.py --{kind}-turns PARENT` (kind `train` or
+    `fused`): `--{kind}-times` of the tree at PARENT (a `git archive` of
+    the parent commit) and of this tree in turns, parent, change, change,
+    parent, each in its own process; returns their rows, which `main`
+    prints as one `{"{kind}_turns": [...]}` line."""
     runs = []
     for tree in (parent, ROOT, ROOT, parent):
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--train-times",
+            [sys.executable, os.path.abspath(__file__), f"--{kind}-times",
              os.path.abspath(tree)], capture_output=True, text=True)
         sys.stdout.write(proc.stdout)
         if proc.returncode != 0:
             sys.stdout.write(proc.stderr[-4000:])
-            raise AssertionError(f"--train-times {tree}: exit "
+            raise AssertionError(f"--{kind}-times {tree}: exit "
                                  f"{proc.returncode}")
         line = [ln for ln in proc.stdout.splitlines()
-                if ln.startswith('{"train_times"')][-1]
+                if ln.startswith(f'{{"{kind}_times"')][-1]
         runs.append(dict(tree="parent" if tree == parent else "change",
-                         **json.loads(line)["train_times"]))
+                         **json.loads(line)[f"{kind}_times"]))
     return runs
+
+
+def _fused_cases(F, K, lib, dev, gen):
+    """The fused kernels of the package `F` was imported from, and the
+    per-layer kernels their routes replace, on seeded inputs at the pileup
+    encoder's shapes. Returns (alone, cases, routes):
+
+      alone   {label: callable} launching each kernel alone at N_TIME, the
+              plan, outputs and packed weights made beforehand;
+      cases   {fused kernel: namespace}: `run(x)` through the wrapper as
+              the model calls it, `plain(x)` its plain version,
+              `make_x(n)` an input of n rows, `x` the one of N_TIME rows,
+              `head` the head's weights (None for bilstm2_center);
+      routes  {label: callable}: the per-layer route each fused kernel
+              replaces, through its wrappers at N_TIME, weights packed
+              once.
+
+    A tree without `plan_two_layer` (e38cd51) has the one-block kernels,
+    whose wrappers pack their weights on every call and take none; once
+    that tree is no longer the parent its branches go."""
+    import torch
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def u(*shape, scale=1.0):
+        return (torch.rand(*shape, generator=gen, device=dev) * 2 - 1) * scale
+
+    def layer(d_in, hidden):
+        k = 1.0 / math.sqrt(hidden)
+        return (u(2, d_in, 4 * hidden, scale=k).bfloat16(),
+                u(2, hidden, 4 * hidden, scale=k).bfloat16(),
+                u(2, 4 * hidden, scale=2 * k))
+
+    new = hasattr(F, "plan_two_layer")
+    seq_len, hidden, p_dim, q_dim = 33, 64, 128, 256
+
+    def make_x1(n):
+        return u(n, seq_len, 18, scale=8.0).bfloat16()
+
+    def make_xh(n):
+        return u(n, seq_len, 2 * hidden).bfloat16()
+
+    x1 = make_x1(N_TIME)
+    l1, l2 = layer(18, hidden), layer(2 * hidden, hidden)
+    wpk1, wpk2 = K.pack_weights(*l1[:2]), K.pack_weights(*l2[:2])
+    # the per-layer route's kernels (the same C interface in both trees)
+    x2 = torch.empty(N_TIME, seq_len, 2 * hidden, dtype=torch.bfloat16,
+                     device=dev)
+    ctr = torch.empty(N_TIME, 2 * hidden, device=dev)
+    p1 = K.plan_layer(N_TIME, seq_len, 18, hidden, False)
+    p2 = K.plan_layer(N_TIME, seq_len, 2 * hidden, hidden, True)
+    alone = {
+        "bilstm_stream s2 L1": lambda: K._call(
+            "nsp_bilstm_stream", dev, x1.data_ptr(), wpk1.data_ptr(),
+            l1[2].data_ptr(), x2.data_ptr(), 0, N_TIME, seq_len, p1.d_x,
+            hidden, p1.bn, p1.smem, p1.grid[0]),
+        "bilstm_center s2 L2": lambda: K._call(
+            "nsp_bilstm_center", dev, x2.data_ptr(), wpk2.data_ptr(),
+            l2[2].data_ptr(), ctr.data_ptr(), N_TIME, seq_len, p2.d_x, hidden,
+            p2.bn, p2.smem, p2.grid[0])}
+    routes = {"bilstm_stream + bilstm_center": lambda: K.bilstm_center(
+        K.bilstm_stream(x1, *l1, packed=wpk1), *l2, packed=wpk2)}
+    out2 = torch.empty(N_TIME, 2 * hidden, device=dev)
+    if new:
+        plan = F.plan_two_layer(N_TIME, seq_len, 18, hidden)
+        mid = torch.empty_like(x2)
+        alone["bilstm2_center"] = lambda: lib.nsp_bilstm2_center(
+            x1.data_ptr(), wpk1.data_ptr(), l1[2].data_ptr(),
+            wpk2.data_ptr(), l2[2].data_ptr(), mid.data_ptr(),
+            out2.data_ptr(), N_TIME, seq_len, plan.d_x, hidden, plan.bn,
+            plan.smem, plan.grid[0], stream)
+
+        def run2(x):
+            return F.bilstm2_center(x, *l1, *l2, wpk1, wpk2)
+    else:
+        alone["bilstm2_center"] = lambda: lib.nsp_bilstm2_center(
+            x1.data_ptr(), wpk1.data_ptr(), l1[2].data_ptr(),
+            wpk2.data_ptr(), l2[2].data_ptr(), out2.data_ptr(), N_TIME,
+            seq_len, 18, hidden, stream)
+
+        def run2(x):
+            return F.bilstm2_center(x, *l1, *l2)
+    cases = {"bilstm2_center": SimpleNamespace(
+        run=run2, plain=lambda x: F.bilstm2_center_plain(x, *l1, *l2),
+        make_x=make_x1, x=x1, head=None)}
+    xh = make_xh(N_TIME)
+    for n_rows in HEAD_ROWS:
+        head = _head_weights(u, hidden, p_dim, q_dim, n_rows)
+        r_dim = -(-n_rows // 16) * 16
+        wh = torch.nn.functional.pad(head[4], (0, 0, 0, r_dim - n_rows))
+        pk = [K.pack_a_fragments(t[None]) for t in (head[0], head[2], wh)]
+        pk.append(torch.nn.functional.pad(head[5], (0, r_dim - n_rows)))
+        out = torch.empty(N_TIME, n_rows, device=dev)
+        # the launches below hold raw pointers: each keeps its tensors
+        # alive (`keep`), as the loop rebinds `out` and `pk`
+        args = (xh.data_ptr(), wpk2.data_ptr(), l2[2].data_ptr(),
+                pk[0].data_ptr(), head[1].data_ptr(), pk[1].data_ptr(),
+                head[3].data_ptr(), pk[2].data_ptr(), pk[3].data_ptr(),
+                out.data_ptr(), N_TIME, seq_len, 2 * hidden, hidden, p_dim,
+                q_dim, r_dim, n_rows)
+        key = f"bilstm_center_head {n_rows} rows"
+        if new:
+            hp = F.plan_center_head(N_TIME, seq_len, 2 * hidden, hidden,
+                                    p_dim, q_dim)
+            head_pk = F.pack_head(head)
+            alone[key] = (lambda a=args, hp=hp, keep=(out, pk):
+                          lib.nsp_bilstm_center_head(
+                              *a, hp.bn, hp.smem, hp.grid[0], stream))
+            run = (lambda x, h=head, hk=head_pk: F.bilstm_center_head(
+                x, *l2, h, wpk2, hk))
+        else:
+            alone[key] = (lambda a=args, keep=(out, pk):
+                          lib.nsp_bilstm_center_head(*a, stream))
+            run = (lambda x, h=head: F.bilstm_center_head(x, *l2, h))
+        cases[key] = SimpleNamespace(
+            run=run, plain=(lambda x, h=head: F.bilstm_center_head_plain(
+                x, *l2, h)), make_x=make_xh, x=xh, head=head)
+        routes[f"bilstm_center + plain head {n_rows} rows"] = (
+            lambda h=head: F.head_plain(K.bilstm_center(xh, *l2, wpk2), h))
+    for name, fn in alone.items():
+        if fn() not in (0, None):
+            raise AssertionError(f"{name}: a launch of the kernel alone "
+                                 "failed")
+    return alone, cases, routes
+
+
+def fused_kernel_times(dev):
+    """The fused kernels and the per-layer kernels of their routes, alone
+    and through their wrappers (`_fused_cases`), at N_TIME, in the package
+    on sys.path. One process a tree: `python3 chip_smoke.py --fused-times
+    TREE`."""
+    import torch
+
+    from nanosnp_tpu_torch.ops import bilstm as K
+    from nanosnp_tpu_torch.ops import bilstm_fused as F
+    from nanosnp_tpu_torch.ops import build
+
+    build.build_all()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    alone, cases, routes = _fused_cases(F, K, build.library("bilstm_fused"),
+                                        dev, gen)
+    row = {k + " alone": cuda_time(fn, 20) for k, fn in alone.items()}
+    row.update({k + " wrapper": cuda_time(lambda c=c: c.run(c.x), 20)
+                for k, c in cases.items()})
+    row.update({k + " wrapper": cuda_time(fn, 20)
+                for k, fn in routes.items()})
+    row["per-layer route alone"] = (row["bilstm_stream s2 L1 alone"]
+                                    + row["bilstm_center s2 L2 alone"])
+    log("[fused-times] " + json.dumps(row))
+    return row
 
 
 def _pileup_columns(rng, seq):
@@ -971,6 +1133,35 @@ def phase_slice(dev):
     return launches, stage_rows
 
 
+def _head_weights(u, hidden, p_dim, q_dim, n_rows):
+    """A seeded head (wp, bp, wd, bd, wh, bh) at the pileup model's scale."""
+    return (u(p_dim, 2 * hidden, scale=0.09).bfloat16(), u(p_dim, scale=0.09),
+            u(q_dim, p_dim, scale=0.09).bfloat16(), u(q_dim, scale=0.09),
+            u(n_rows, q_dim, scale=0.06).bfloat16(), u(n_rows, scale=0.06))
+
+
+def _fused_checks(name, label, fn, plain, make_x):
+    """A fused kernel's wrapper against its plain version at each N of
+    N_INFER_CHECK, each run twice (the same bits: no sum depends on timing);
+    returns the largest max|d|."""
+    import torch
+
+    worst = 0.0
+    for n in N_INFER_CHECK:
+        x = make_x(n)
+        got, again = fn(x), fn(x)
+        torch.cuda.synchronize()
+        err, _ = _errs(got, plain(x))
+        same = torch.equal(got, again)
+        log(f"[check] {name:21s} {label:30s} N={n}: max|d|={err:.3e} "
+            f"(tol {CENTER_TOL}), second run the same bits: {same}")
+        if not (err <= CENTER_TOL and same):
+            raise AssertionError(f"{name} {label} N={n}: max|d| {err}, "
+                                 f"same bits {same}")
+        worst = max(worst, err)
+    return worst
+
+
 def phase_new_kernels(dev):
     """Phase 1c: the inference recurrence, the center + head kernel and the
     two-layer kernel against their plain versions, timed beside cuDNN."""
@@ -990,12 +1181,6 @@ def phase_new_kernels(dev):
     def u(*shape, scale=1.0):
         return (torch.rand(*shape, generator=gen, device=dev) * 2 - 1) * scale
 
-    def layer(d_in, hidden):
-        k = 1.0 / math.sqrt(hidden)
-        return (u(2, d_in, 4 * hidden, scale=k).bfloat16(),
-                u(2, hidden, 4 * hidden, scale=k).bfloat16(),
-                u(2, 4 * hidden, scale=2 * k))
-
     def cudnn_ms(d_in, hidden, seq_len, layers=1, then=None):
         lstm = torch.nn.LSTM(d_in, hidden, num_layers=layers,
                              batch_first=True, bidirectional=True,
@@ -1014,9 +1199,9 @@ def phase_new_kernels(dev):
 
     def record(name, label, err, tol, kern, alone, plain, library_ms, cost,
                **dims):
-        """kern: the wrapper, as a caller gets it (packing the weights on
-        every call); alone: the kernel's C entry point with the packed
-        weights and the output made beforehand."""
+        """kern: the wrapper, as a caller gets it (a model's packed weights
+        made once, beforehand); alone: the kernel's C entry point with the
+        plan, the packed weights and the outputs made beforehand."""
         if not err <= tol:
             raise AssertionError(f"{name} {label}: max|d| {err} > {tol}")
         wrapper_ms = cuda_time(kern, 10)
@@ -1035,7 +1220,6 @@ def phase_new_kernels(dev):
             f"{library_ms:.3f} ms, bound {rows[-1]['bound_ms']:.4f} ms "
             f"({rows[-1]['bound_by']})")
 
-    fused_lib = library("bilstm_fused")
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     # ---- lstm_recurrence_infer: f32 and bf16 xp, the path of `plan_infer`
@@ -1094,89 +1278,68 @@ def phase_new_kernels(dev):
                 log(f"[time]  the packed kernel alone at the same shape: "
                     f"{rows[-1]['packed_ms']:.3f} ms")
 
-    # ---- bilstm_center_head at the s2 L2 shape
-    seq_len, d_in, hidden, p_dim, q_dim = 33, 128, 64, 128, 256
+    # ---- bilstm_center_head at the s2 L2 shape, then bilstm2_center at the
+    # pileup encoder's (`_fused_cases`): each against its plain version at
+    # N_INFER_CHECK (cluster tails; N_WIDE on the tile of N_TIME), twice
+    # (the same bits), then timed at N_TIME alone (the C entry point, plan,
+    # packed weights and output made beforehand) and through the wrapper
+    # with the weights packed once, as the model calls it, beside the
+    # per-layer route it replaces
+    alone, cases, routes = _fused_cases(F, K, library("bilstm_fused"), dev,
+                                        gen)
+    seq_len, hidden, p_dim, q_dim = 33, 64, 128, 256
     for n_rows in HEAD_ROWS:
-        head = (u(p_dim, 2 * hidden, scale=0.09).bfloat16(),
-                u(p_dim, scale=0.09),
-                u(q_dim, p_dim, scale=0.09).bfloat16(), u(q_dim, scale=0.09),
-                u(n_rows, q_dim, scale=0.06).bfloat16(),
-                u(n_rows, scale=0.06))
-        lay = layer(d_in, hidden)
-        x = u(N_CHECK, seq_len, d_in).bfloat16()
-        got = F.bilstm_center_head(x, *lay, head)
-        torch.cuda.synchronize()
-        err, _ = _errs(got, F.bilstm_center_head_plain(x, *lay, head))
+        case = cases[f"bilstm_center_head {n_rows} rows"]
         label = f"s2 L2 + head, {n_rows} rows"
-        log(f"[check] bilstm_center_head    {label:30s} N={N_CHECK} "
-            f"L={seq_len} D={d_in} H={hidden}: max|d|={err:.3e} "
-            f"(tol {CENTER_TOL})")
-        x = u(N_TIME, seq_len, d_in).bfloat16()
-        wl = [t.float().T.contiguous() for t in head[::2]]
+        err = _fused_checks("bilstm_center_head", label, case.run,
+                            case.plain, case.make_x)
+        wl = [t.float().T.contiguous() for t in case.head[::2]]
 
-        def lib_head(ctr):
+        def lib_head(ctr, wl=wl, head=case.head):
             feat = ctr.float() @ wl[0] + head[1]
             feat = torch.tanh(feat @ wl[1] + head[3])
             return feat @ wl[2] + head[5]
 
-        r_dim = -(-n_rows // 16) * 16
-        packed = [K.pack_weights(lay[0], lay[1])] + [
-            K.pack_a_fragments(t[None]) for t in (
-                head[0], head[2],
-                torch.nn.functional.pad(head[4], (0, 0, 0, r_dim - n_rows)))]
-        bh_pad = torch.nn.functional.pad(head[5], (0, r_dim - n_rows))
-        out = torch.empty(N_TIME, n_rows, device=dev)
+        plan = F.plan_center_head(N_TIME, seq_len, 2 * hidden, hidden,
+                                  p_dim, q_dim)
         record("bilstm_center_head", label, err, CENTER_TOL,
-               lambda: F.bilstm_center_head(x, *lay, head),
-               lambda: fused_lib.nsp_bilstm_center_head(
-                   x.data_ptr(), packed[0].data_ptr(), lay[2].data_ptr(),
-                   packed[1].data_ptr(), head[1].data_ptr(),
-                   packed[2].data_ptr(), head[3].data_ptr(),
-                   packed[3].data_ptr(), bh_pad.data_ptr(), out.data_ptr(),
-                   N_TIME, seq_len, d_in, hidden, p_dim, q_dim, r_dim, n_rows,
-                   stream),
-               lambda: F.bilstm_center_head_plain(x, *lay, head),
-               cudnn_ms(d_in, hidden, seq_len, then=lib_head),
-               F.center_head_cost(N_TIME, seq_len, d_in, hidden, p_dim,
+               lambda c=case: c.run(c.x),
+               alone[f"bilstm_center_head {n_rows} rows"],
+               lambda c=case: c.plain(c.x),
+               cudnn_ms(2 * hidden, hidden, seq_len, then=lib_head),
+               F.center_head_cost(N_TIME, seq_len, 2 * hidden, hidden, p_dim,
                                   q_dim, n_rows),
-               L=seq_len, D=d_in, H=hidden, rows=n_rows)
-        split = cuda_time(lambda: F.head_plain(K.bilstm_center(x, *lay),
-                                               head), 10)
-        # as the wrapper packs them: the head matrix padded to 16 rows
-        pad = (0, 0, 0, -n_rows % 16)
-        pack = cuda_time(lambda: [K.pack_a_fragments(t[None]) for t in (
-            head[0], head[2], torch.nn.functional.pad(head[4], pad))], 10)
-        rows[-1].update(center_then_plain_head_ms=split, head_pack_ms=pack)
-        log(f"[time]  the same as bilstm_center + plain head: {split:.3f} ms"
-            f"; packing the head's weights alone: {pack:.3f} ms")
+               L=seq_len, D=2 * hidden, H=hidden, rows=n_rows, bn=plan.bn,
+               clusters=plan.grid[0] // 2, smem=plan.smem,
+               clusters_resident=F.fused_occupancy(plan, (p_dim, q_dim)))
+        split = cuda_time(routes[f"bilstm_center + plain head {n_rows} rows"],
+                          10)
+        rows[-1]["center_then_plain_head_ms"] = split
+        log(f"[time]  the same as bilstm_center + plain head (weights "
+            f"packed once): {split:.3f} ms; clusters {plan.grid[0] // 2} of "
+            f"{rows[-1]['clusters_resident']} resident, {plan.smem} B a CTA")
 
-    # ---- bilstm2_center at the pileup encoder's shape
-    seq_len, d_in, hidden = 33, 18, 64
-    l1, l2 = layer(d_in, hidden), layer(2 * hidden, hidden)
-    x = u(N_CHECK, seq_len, d_in, scale=8.0).bfloat16()
-    got = F.bilstm2_center(x, *l1, *l2)
-    torch.cuda.synchronize()
-    err, _ = _errs(got, F.bilstm2_center_plain(x, *l1, *l2))
-    log(f"[check] bilstm2_center        pileup encoder N={N_CHECK} "
-        f"L={seq_len} D={d_in} H={hidden}: max|d|={err:.3e} "
-        f"(tol {CENTER_TOL})")
-    x = u(N_TIME, seq_len, d_in, scale=8.0).bfloat16()
-    wpk1, wpk2 = K.pack_weights(*l1[:2]), K.pack_weights(*l2[:2])
-    out = torch.empty(N_TIME, 2 * hidden, device=dev)
+    case, d_in = cases["bilstm2_center"], 18
+    err = _fused_checks("bilstm2_center", "pileup encoder", case.run,
+                        case.plain, case.make_x)
+    x = case.x
+    plan = F.plan_two_layer(N_TIME, seq_len, d_in, hidden)
     record("bilstm2_center", "pileup encoder", err, CENTER_TOL,
-           lambda: F.bilstm2_center(x, *l1, *l2),
-           lambda: fused_lib.nsp_bilstm2_center(
-               x.data_ptr(), wpk1.data_ptr(), l1[2].data_ptr(),
-               wpk2.data_ptr(), l2[2].data_ptr(), out.data_ptr(), N_TIME,
-               seq_len, d_in, hidden, stream),
-           lambda: F.bilstm2_center_plain(x, *l1, *l2),
-           cudnn_ms(d_in, hidden, seq_len, layers=2),
+           lambda: case.run(x), alone["bilstm2_center"],
+           lambda: case.plain(x), cudnn_ms(d_in, hidden, seq_len, layers=2),
            F.two_layer_cost(N_TIME, seq_len, d_in, hidden),
-           L=seq_len, D=d_in, H=hidden)
-    split = cuda_time(lambda: K.bilstm_center(K.bilstm_stream(x, *l1), *l2),
-                      10)
-    rows[-1]["per_layer_kernels_ms"] = split
-    log(f"[time]  the same as bilstm_stream + bilstm_center: {split:.3f} ms")
+           L=seq_len, D=d_in, H=hidden, bn=plan.bn,
+           clusters=plan.grid[0] // 2, smem=plan.smem,
+           clusters_resident=F.fused_occupancy(plan))
+    split = cuda_time(routes["bilstm_stream + bilstm_center"], 10)
+    split_alone = (cuda_time(alone["bilstm_stream s2 L1"], 10)
+                   + cuda_time(alone["bilstm_center s2 L2"], 10))
+    rows[-1].update(per_layer_kernels_ms=split,
+                    per_layer_kernels_alone_ms=split_alone)
+    log(f"[time]  the same as bilstm_stream + bilstm_center (weights packed "
+        f"once): {split:.3f} ms, the two kernels alone {split_alone:.3f} ms; "
+        f"clusters {plan.grid[0] // 2} of {rows[-1]['clusters_resident']} "
+        f"resident, {plan.smem} B a CTA")
 
     # ---- the fused=False encoder (bf16 xp through the inference kernel)
     # against the fused encoder, on the pileup model's seeded encoder
@@ -2203,13 +2366,19 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     args = sys.argv[1:]
-    if args and args[0] in ("--train-times", "--train-turns") \
+    if args and args[0] in ("--train-times", "--train-turns",
+                            "--fused-times", "--fused-turns") \
             and len(args) == 2:
         log(_card())
-        if args[0] == "--train-turns":
-            log(json.dumps({"train_turns": train_turns(args[1])}))
+        if args[0].endswith("-turns"):
+            kind = args[0][2:-len("-turns")]
+            log(json.dumps({f"{kind}_turns": _turns(kind, args[1])}))
             return 0
         sys.path[:0] = [os.path.abspath(args[1]), ROOT]
+        if args[0] == "--fused-times":
+            log(json.dumps({"fused_times": fused_kernel_times(
+                torch.device("cuda", 0))}))
+            return 0
         log(json.dumps({"train_times": train_kernel_times(
             torch.device("cuda", 0))}))
         return 0

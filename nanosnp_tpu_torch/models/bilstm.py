@@ -51,6 +51,16 @@ def _param(a) -> nn.Parameter:
                         .detach().clone())
 
 
+def param_key(params: Iterable[torch.Tensor]) -> tuple:
+    """What identifies the values of these parameters: a cache of anything
+    made from them is stale once the key changes (a version counter moves
+    on an in-place update, as an optimizer step; storage or device on
+    `.to()`). A parameter made under torch.inference_mode has no version
+    counter and is never trained: its storage identifies it."""
+    return tuple((-1 if p.is_inference() else p._version, p.data_ptr(),
+                  p.device) for p in params)
+
+
 class BiLSTMLayer(nn.Module):
     def __init__(self, p: Mapping):
         super().__init__()
@@ -67,13 +77,9 @@ class BiLSTMLayer(nn.Module):
         """(w_ih bf16, w_hh bf16, b f32, pack_weights of the two, or None
         where H is not a multiple of 16, which no kernel takes): the
         kernels' operands, made once and rebuilt only when a parameter
-        changed (its version counter, storage or device), as after an
-        optimizer step or `.to()`. A parameter made under
-        torch.inference_mode has no version counter and is never trained:
-        its storage identifies it."""
+        changed (`param_key`)."""
         params = (self.w_ih, self.w_hh, self.b)
-        key = tuple((-1 if p.is_inference() else p._version, p.data_ptr(),
-                     p.device) for p in params)
+        key = param_key(params)
         if self._kernel_cache is None or self._kernel_cache[0] != key:
             w_ih, w_hh = (p.detach().bfloat16().contiguous()
                           for p in params[:2])
@@ -156,16 +162,19 @@ def k_fusable(d_in: int, hidden: int) -> bool:
 @torch.no_grad()
 def bilstm_encoder_fused(layers: Iterable[BiLSTMLayer], x: torch.Tensor,
                          center_only: bool = False,
-                         head: Optional[Sequence[torch.Tensor]] = None
+                         head: Optional[Sequence[torch.Tensor]] = None,
+                         head_packed: Optional[Sequence[torch.Tensor]] = None
                          ) -> torch.Tensor:
     """Kernel path. x [N, L, D] -> [N, L, 2H] f32, or [N, 2H] f32 (the
     state at t = L//2) when center_only. With `head` (center_only; the
-    tuple of ops.bilstm_fused) it returns the head's logits [N, R]: from
+    tuple of ops.bilstm_fused, `head_packed` its pack_head, which the
+    kernel needs on the card) it returns the head's logits [N, R]: from
     inside the last layer's kernel where that layer is not K-fusable and
     the kernel takes the shape, else from the plain head on the center
     state. Under NSP_FUSE_LAYERS=1 (read at call time) a center-only
     two-layer encoder of equal widths runs as one kernel where
-    `two_layer_supported` holds."""
+    `two_layer_supported` holds. Every kernel gets the layers' weights
+    packed once (`BiLSTMLayer.kernel_weights`)."""
     layers = list(layers)
     if head is not None and not center_only:
         raise ValueError("a head needs center_only")
@@ -176,8 +185,8 @@ def bilstm_encoder_fused(layers: Iterable[BiLSTMLayer], x: torch.Tensor,
         l1, l2 = layers
         if (l2.hidden == l1.hidden and l2.w_ih.shape[1] == 2 * l1.hidden
                 and two_layer_supported(seq_len, d_in, l1.hidden)):
-            ctr = bilstm2_center(h, *l1.kernel_weights()[:3],
-                                 *l2.kernel_weights()[:3])
+            w1, w2 = l1.kernel_weights(), l2.kernel_weights()
+            ctr = bilstm2_center(h, *w1[:3], *w2[:3], w1[3], w2[3])
             return ctr if head is None else head_plain(ctr, head)
     hs = None
     for idx, layer in enumerate(layers):
@@ -189,7 +198,8 @@ def bilstm_encoder_fused(layers: Iterable[BiLSTMLayer], x: torch.Tensor,
                     and center_head_supported(seq_len, d_l, hidden,
                                               head[0].shape[0],
                                               head[2].shape[0])):
-                return bilstm_center_head(h, w_ih, w_hh, b, head)
+                return bilstm_center_head(h, w_ih, w_hh, b, head, packed,
+                                          head_packed)
             ctr = bilstm_center(h, w_ih, w_hh, b, packed)
             return ctr if head is None else head_plain(ctr, head)
         hs = bilstm_stream(h, w_ih, w_hh, b,

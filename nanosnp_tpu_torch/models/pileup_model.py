@@ -18,9 +18,10 @@ from torch import nn
 
 from ..config import PileupModelConfig
 from ..device import set_matmul_precision
+from ..ops.bilstm_fused import pack_head
 from .bilstm import (BiLSTM, Dense, bilstm_encoder_fused,
                      bilstm_encoder_train, encoder_center,
-                     init_bilstm_params, init_linear_params)
+                     init_bilstm_params, init_linear_params, param_key)
 
 HEADS = ("gt", "zy", "id1", "id2")
 
@@ -34,6 +35,7 @@ class PileupModel(nn.Module):
         self.proj = Dense(params["proj"])
         self.dense = Dense(params["dense"])
         self.heads = nn.ModuleDict({k: Dense(params[k]) for k in HEADS})
+        self._head_cache = {}
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor,
@@ -45,9 +47,10 @@ class PileupModel(nn.Module):
         names = HEADS if all_heads else HEADS[:2]
         kernel_path = x.is_cuda or compute_dtype == torch.bfloat16
         if kernel_path and os.environ.get("NSP_FUSE_HEAD", "0") == "1":
+            head, head_packed = self.fused_head(names)
             logits = bilstm_encoder_fused(self.encoder.layers, x,
-                                          center_only=True,
-                                          head=self.fused_head(names))
+                                          center_only=True, head=head,
+                                          head_packed=head_packed)
             sizes = [self.heads[k].w.shape[1] for k in names]
             outs = logits[:, :sum(sizes)].split(sizes, dim=1)
             return tuple(outs) + (None,) * (4 - len(outs))
@@ -58,18 +61,30 @@ class PileupModel(nn.Module):
         return tuple(outs) + (None,) * (4 - len(outs))
 
     def fused_head(self, names):
-        """proj, dense and the named heads as the in-kernel head: bf16
-        weights in [out, in] layout, the heads stacked into one matrix with
-        its rows zero-padded to a multiple of 8, as the JAX package pads
-        them."""
-        wh = torch.cat([self.heads[k].w.T for k in names])
-        bh = torch.cat([self.heads[k].b for k in names])
-        pad = -wh.shape[0] % 8
-        wh = nn.functional.pad(wh, (0, 0, 0, pad))
-        bh = nn.functional.pad(bh, (0, pad))
-        return (self.proj.w.T.bfloat16().contiguous(), self.proj.b.float(),
-                self.dense.w.T.bfloat16().contiguous(), self.dense.b.float(),
-                wh.bfloat16().contiguous(), bh.float().contiguous())
+        """(head, pack_head(head)): proj, dense and the named heads as the
+        in-kernel head, bf16 weights in [out, in] layout, the heads stacked
+        into one matrix with its rows zero-padded to a multiple of 8, as the
+        JAX package pads them. Made once for each `names` and rebuilt only
+        when one of its parameters changed (`param_key`)."""
+        params = [self.proj.w, self.proj.b, self.dense.w, self.dense.b]
+        params += [p for k in names
+                   for p in (self.heads[k].w, self.heads[k].b)]
+        key = param_key(params)
+        hit = self._head_cache.get(tuple(names))
+        if hit is None or hit[0] != key:
+            wh = torch.cat([self.heads[k].w.T for k in names]).detach()
+            bh = torch.cat([self.heads[k].b for k in names]).detach()
+            pad = -wh.shape[0] % 8
+            wh = nn.functional.pad(wh, (0, 0, 0, pad))
+            bh = nn.functional.pad(bh, (0, pad))
+            head = (self.proj.w.detach().T.bfloat16().contiguous(),
+                    self.proj.b.detach().float().contiguous(),
+                    self.dense.w.detach().T.bfloat16().contiguous(),
+                    self.dense.b.detach().float().contiguous(),
+                    wh.bfloat16().contiguous(), bh.float().contiguous())
+            hit = (key, (head, pack_head(head)))
+            self._head_cache[tuple(names)] = hit
+        return hit[1]
 
     def forward_train(self, x: torch.Tensor, *, use_kernels: bool,
                       generator: Optional[torch.Generator] = None):

@@ -205,11 +205,17 @@ def pack_a_fragments(a: torch.Tensor) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class LayerPlan:
-    """How one layer call runs on the card. Every field is an int (or a
-    tuple of ints) that the C launchers take and check.
+    """How one kernel call runs on the card. Every field is an int (or a
+    tuple of ints) that the C launchers take and check. `kp_tiles`: the
+    k-tiles of packed weights a block multiplies by (a CTA's slice of them
+    on the cluster path).
 
     fused:   one block of `threads` per (tile of `bn` rows, direction),
              grid (ceil(N/bn), 2), `smem` bytes; x read `d_x` wide.
+    two_layer, center_head: the opt-in kernels of ops/bilstm_fused.py,
+             clusters of two CTAs, CTA d running direction d, grid
+             (2 ceil(N/bn), 1); `kp_tiles` counts all the packed weights a
+             CTA copies (both layers' for two_layer).
     cluster: the in-projection over `inproj_grid` blocks of 512 threads
              (`inproj_smem` bytes) into xp [2, steps_t, n_pad/8, 4H/16, 32,
              4] f32, direction 1's time index t - t1_lo, direction 0 running
@@ -274,26 +280,41 @@ def cluster_smem(hidden: int, csize: int, bn: int) -> int:
     return 4 * (hidden // csize) * hidden * 2 + 2 * bn * (hidden + 8) * 2
 
 
-def _fused_plan(n, seq_len, d_in, hidden, center) -> Optional[LayerPlan]:
-    """The fused plan of fewest waves (then smallest tile), or None where
-    the weights and tiles fit no block."""
-    d_x = d_in + d_in % 2
+def fewest_waves(n: int, hidden: int, tiles: Tuple[int, ...],
+                 smem_of: Callable[[int], int]
+                 ) -> Optional[Tuple[int, int, int]]:
+    """(bn, threads, smem) of the batch tile among `tiles` whose blocks,
+    two a tile (one a direction), take the fewest waves of the card, then
+    the smallest tile; None where no tile fits a block: (H/16) (bn/32)
+    warps, at most 16, and `smem_of(bn)` bytes of shared memory. Plans the
+    fused layers and both kernels of ops/bilstm_fused.py."""
     best = None
-    for bn in (32, 64, 128):
+    for bn in tiles:
         warps = hidden // 16 * (bn // 32)
-        smem = fused_smem(d_x, hidden, bn)
+        smem = smem_of(bn)
         if warps > 16 or smem > SMEM_MAX:
             continue
         threads = 32 * warps
         per_sm = min(SMEM_SM // (smem + 1024),
                      REGS_SM // (threads * REGS_FUSED), 64 // warps)
-        blocks = -(-n // bn) * 2
-        waves = -(-blocks // (SM_COUNT * per_sm))
+        waves = -(-2 * -(-n // bn) // (SM_COUNT * per_sm))
         if best is None or waves < best[0]:
-            best = (waves, LayerPlan(
-                "fused", n, seq_len, d_in, hidden, center, d_x, bn, 1,
-                threads, smem, (-(-n // bn), 2), (_pad16(d_x) + hidden) // 16))
-    return None if best is None else best[1]
+            best = (waves, bn, threads, smem)
+    return None if best is None else best[1:]
+
+
+def _fused_plan(n, seq_len, d_in, hidden, center) -> Optional[LayerPlan]:
+    """The fused plan of `fewest_waves`, or None where the weights and
+    tiles fit no block."""
+    d_x = d_in + d_in % 2
+    tile = fewest_waves(n, hidden, (32, 64, 128),
+                        lambda bn: fused_smem(d_x, hidden, bn))
+    if tile is None:
+        return None
+    bn, threads, smem = tile
+    return LayerPlan("fused", n, seq_len, d_in, hidden, center, d_x, bn, 1,
+                     threads, smem, (-(-n // bn), 2),
+                     (_pad16(d_x) + hidden) // 16)
 
 
 def plan_layer(n: int, seq_len: int, d_in: int, hidden: int,
@@ -352,8 +373,8 @@ def plan_traffic(plan: LayerPlan) -> Dict[str, int]:
     trip through device memory."""
     kp = plan.kp_tiles * 16
     hidden = plan.hidden
-    if plan.path == "fused":
-        return {"weights": plan.grid[0] * 2 * 4 * hidden * kp * 2}
+    if plan.path != "cluster":   # each block its direction's weights once
+        return {"weights": plan.grid[0] * plan.grid[1] * 4 * hidden * kp * 2}
     d_pad = kp - hidden
     blocks = plan.inproj_tiles
     out = {"w_hh": plan.grid[0] // plan.cluster * 2 * 4 * hidden * hidden * 2,

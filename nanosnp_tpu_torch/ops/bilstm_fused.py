@@ -8,67 +8,153 @@ its plain PyTorch version beside it:
                       logits = Wh . bf16(tanh(Wd . bf16(Wp . bf16(ctr) + bp)
                       + bd)) + bh, [N, rows] f32. Replaces
                       `_enc_center_head_kernel` (pallas_lstm.py:556).
-  bilstm2_center      both layers of a two-layer encoder in one kernel, the
-                      bf16 activations between them kept in shared memory;
-                      only layer 2's state at t = L//2, [N, 2H] f32.
-                      Replaces `_enc2_center_kernel` (pallas_lstm.py:842).
+  bilstm2_center      both layers of a two-layer encoder in one kernel, bf16
+                      activations between them; only layer 2's state at
+                      t = L//2, [N, 2H] f32. Replaces `_enc2_center_kernel`
+                      (pallas_lstm.py:842).
 
 The layers' contract is that of ops/bilstm.py (x bf16, w_ih/w_hh bf16, b
 f32, gate order i, f, g, o, bf16 operands with f32 accumulation, f32 cell).
 The head is (wp [P, 2H], bp [P], wd [Q, P], bd [Q], wh [R, Q], bh [R]):
 weights bf16 in [out, in] layout, biases f32.
 
-One block of either kernel runs both directions of its batch tile, which
-bounds what they take: L odd, H a multiple of 16 up to 128, and shared
-memory within the 227 KiB a block may ask for (`center_head_supported`,
-`two_layer_supported`). A caller chooses its route by those rules; a shape
-outside them raises here.
+Both kernels run on clusters of two CTAs, one a direction, each cluster a
+tile of `bn` batch rows, every CTA holding its direction's packed weights
+in shared memory. `plan_two_layer` / `plan_center_head` give the launch
+plan, an `ops.bilstm.LayerPlan` whose tile the fused layers' own rule
+(`fewest_waves`) picks and whose ints the C launchers check;
+`two_layer_supported` /
+`center_head_supported` say whether a shape has one, and a caller
+chooses its route by them before any launch.
 
-A wrapper takes the plain version only for tensors on the CPU. For CUDA
-tensors it launches the kernel or raises. Launches count in
+The wrappers take the weights packed beforehand (a layer's
+`BiLSTMLayer.kernel_weights()[3]`, the head's `pack_head`) and pack
+nothing. A wrapper takes the plain version only for tensors on the CPU. For
+CUDA tensors it launches the kernel or raises. Launches count in
 `ops.bilstm.LAUNCHES`.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from functools import lru_cache
+from typing import Optional, Sequence, Tuple
 
 import torch
 
-from .bilstm import (LAUNCHES, _check, bilstm_center_plain,
-                     bilstm_stream_plain, layer_cost, pack_a_fragments,
-                     pack_weights)
+from .bilstm import (_ERRORS, LAUNCHES, SMEM_MAX, LayerPlan, _check,
+                     _kernel_x, _packed, bilstm_center_plain,
+                     bilstm_stream_plain, fewest_waves, layer_cost,
+                     pack_a_fragments)
 
-SMEM_LIMIT = 232_448        # bytes of shared memory one block may ask for
 _ROW_PAD = 8                # as kRowPad in the kernels
-_HEAD_ROWS, _TWO_LAYER_ROWS = 32, 16     # batch rows a block
+_TWO_LAYER_TILES = (32, 64, 128)     # batch rows a cluster
+_HEAD_TILES = (64, 128)     # each CTA's half a multiple of 32 rows
 
 
 def _pad16(v: int) -> int:
     return -(-v // 16) * 16
 
 
-def _geometry_ok(seq_len: int, hidden: int) -> bool:
-    return seq_len % 2 == 1 and hidden % 16 == 0 and 0 < hidden <= 128
+def two_layer_smem(d_x: int, hidden: int, bn: int) -> int:
+    """Shared memory of `bilstm2_center`'s CTA (csrc two_layer_smem):
+    layer 1's weights and x tiles or, after them, layer 2's x tiles; layer
+    2's weights; the h tiles."""
+    d_pad = _pad16(d_x)
+    w1 = 4 * hidden * (d_pad + hidden) * 2
+    x1 = 2 * bn * (d_pad + _ROW_PAD) * 2
+    x2 = 2 * bn * (2 * hidden + _ROW_PAD) * 2
+    return (max(w1 + x1, x2) + 4 * hidden * 3 * hidden * 2
+            + 2 * bn * (hidden + _ROW_PAD) * 2)
+
+
+def center_head_smem(d_x: int, hidden: int, p_dim: int, q_dim: int,
+                     bn: int) -> int:
+    """Shared memory of `bilstm_center_head`'s CTA (csrc
+    center_head_smem): the weights; the x tiles, later the head's tiles of
+    bn/2 rows; the h tiles; the center of bn/2 rows."""
+    d_pad, half = _pad16(d_x), bn // 2
+    return (4 * hidden * (d_pad + hidden) * 2
+            + max(2 * bn * (d_pad + _ROW_PAD),
+                  half * (p_dim + q_dim + 2 * _ROW_PAD)) * 2
+            + 2 * bn * (hidden + _ROW_PAD) * 2
+            + half * (2 * hidden + _ROW_PAD) * 2)
+
+
+def _pair_plan(path, n, seq_len, d_in, hidden, tiles, smem_of,
+               weight_tiles) -> Optional[LayerPlan]:
+    """The 2-CTA cluster plan of `fewest_waves` (as the fused layers'), or
+    None where no tile fits a CTA."""
+    if (n < 1 or seq_len < 1 or seq_len % 2 == 0 or d_in < 1
+            or hidden < 16 or hidden % 16):
+        return None
+    d_x = d_in + d_in % 2
+    tile = fewest_waves(n, hidden, tiles, lambda bn: smem_of(d_x, bn))
+    if tile is None:
+        return None
+    bn, threads, smem = tile
+    return LayerPlan(path, n, seq_len, d_in, hidden, True, d_x, bn, 2,
+                     threads, smem, (2 * -(-n // bn), 1),
+                     weight_tiles(_pad16(d_x)))
+
+
+@lru_cache(maxsize=256)      # a plan is a pure function of ints
+def _two_layer_plan(n, seq_len, d_in, hidden):
+    return _pair_plan("two_layer", n, seq_len, d_in, hidden,
+                      _TWO_LAYER_TILES,
+                      lambda d_x, bn: two_layer_smem(d_x, hidden, bn),
+                      lambda d_pad: (d_pad + 4 * hidden) // 16)
+
+
+@lru_cache(maxsize=256)
+def _center_head_plan(n, seq_len, d_in, hidden, p_dim, q_dim):
+    if p_dim < 16 or p_dim % 16 or q_dim < 16 or q_dim % 16:
+        return None
+    return _pair_plan("center_head", n, seq_len, d_in, hidden, _HEAD_TILES,
+                      lambda d_x, bn: center_head_smem(d_x, hidden, p_dim,
+                                                       q_dim, bn),
+                      lambda d_pad: (d_pad + hidden) // 16)
+
+
+def plan_two_layer(n: int, seq_len: int, d_in: int,
+                   hidden: int) -> LayerPlan:
+    """`bilstm2_center`'s launch plan; ValueError for a shape it does not
+    take."""
+    plan = _two_layer_plan(n, seq_len, d_in, hidden)
+    if plan is None:
+        raise ValueError(
+            "no two-layer kernel plan: it takes N >= 1, odd L and H a "
+            "multiple of 16 whose two layers' weights and tiles fit "
+            f"{SMEM_MAX} bytes of shared memory a CTA; got N={n}, "
+            f"L={seq_len}, D={d_in}, H={hidden}")
+    return plan
+
+
+def plan_center_head(n: int, seq_len: int, d_in: int, hidden: int,
+                     p_dim: int, q_dim: int) -> LayerPlan:
+    """`bilstm_center_head`'s launch plan; ValueError for a shape it does
+    not take."""
+    plan = _center_head_plan(n, seq_len, d_in, hidden, p_dim, q_dim)
+    if plan is None:
+        raise ValueError(
+            "no center + head kernel plan: it takes N >= 1, odd L, H a "
+            "multiple of 16, P and Q multiples of 16, the layer's weights "
+            f"and tiles within {SMEM_MAX} bytes of shared memory a CTA; "
+            f"got N={n}, L={seq_len}, D={d_in}, H={hidden}, P={p_dim}, "
+            f"Q={q_dim}")
+    return plan
 
 
 def center_head_supported(seq_len: int, d_in: int, hidden: int, p_dim: int,
                           q_dim: int) -> bool:
-    """Whether `bilstm_center_head`'s kernel takes this shape."""
-    smem = 2 * _HEAD_ROWS * (
-        2 * (_pad16(d_in) + hidden + _ROW_PAD) + (2 * hidden + _ROW_PAD)
-        + (p_dim + _ROW_PAD) + (q_dim + _ROW_PAD))
-    return (_geometry_ok(seq_len, hidden) and p_dim % 16 == 0
-            and q_dim % 16 == 0 and smem <= SMEM_LIMIT)
+    """Whether `bilstm_center_head`'s kernel takes this shape (at any N)."""
+    return _center_head_plan(1, seq_len, d_in, hidden, p_dim,
+                             q_dim) is not None
 
 
 def two_layer_supported(seq_len: int, d_in: int, hidden: int) -> bool:
-    """Whether `bilstm2_center`'s kernel takes this shape: its slab of
-    layer-1 states, L x (2H + 8) bf16 a batch row for 16 rows, must fit
-    beside the operand tiles."""
-    smem = 2 * _TWO_LAYER_ROWS * (
-        seq_len * (2 * hidden + _ROW_PAD)
-        + 2 * (_pad16(d_in) + hidden + _ROW_PAD) + 2 * (hidden + _ROW_PAD))
-    return _geometry_ok(seq_len, hidden) and smem <= SMEM_LIMIT
+    """Whether `bilstm2_center`'s kernel takes this shape (at any N): both
+    layers' weights of one direction in a CTA beside its tiles. L only
+    needs to be odd: layer 1's states pass through device memory."""
+    return _two_layer_plan(1, seq_len, d_in, hidden) is not None
 
 
 def _check_head(head: Sequence[torch.Tensor], hidden: int, device) -> None:
@@ -90,6 +176,38 @@ def _check_head(head: Sequence[torch.Tensor], hidden: int, device) -> None:
                         f"{[t.dtype for t in head]}")
     if any(t.device != device for t in head):
         raise ValueError("head tensors on another device than x")
+
+
+def pack_head(head: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """The head as its kernel reads it: wp, wd and wh (its rows zero-padded
+    to a multiple of 16) as packed A fragments [M/16, K/16, 32, 8] bf16,
+    and bh padded alike. Made once per set of weights (a model caches it),
+    never per call."""
+    wp, _, wd, _, wh, bh = head
+    pad = _pad16(wh.shape[0]) - wh.shape[0]
+    return (pack_a_fragments(wp[None])[0], pack_a_fragments(wd[None])[0],
+            pack_a_fragments(torch.nn.functional.pad(wh, (0, 0, 0, pad))
+                             [None])[0],
+            torch.nn.functional.pad(bh, (0, pad)).contiguous())
+
+
+def _check_head_packed(head, head_packed) -> Tuple[torch.Tensor, ...]:
+    if head_packed is None:
+        raise ValueError("pass the head packed beforehand (pack_head): the "
+                         "kernel's wrapper packs nothing")
+    wp, _, wd, _, wh, _ = head
+    p_dim, q_dim, r_dim = wp.shape[0], wd.shape[0], _pad16(wh.shape[0])
+    want = [(p_dim // 16, wp.shape[1] // 16, 32, 8),
+            (q_dim // 16, p_dim // 16, 32, 8),
+            (r_dim // 16, q_dim // 16, 32, 8), (r_dim,)]
+    got = [tuple(t.shape) for t in head_packed]
+    if (got != want or any(t.device != wp.device or not t.is_contiguous()
+                           for t in head_packed)
+            or any(t.dtype != torch.bfloat16 for t in head_packed[:3])
+            or head_packed[3].dtype != torch.float32):
+        raise ValueError(f"head_packed must be pack_head(head): {want}, "
+                         f"contiguous on {wp.device}; got {got}")
+    return tuple(head_packed)
 
 
 def head_plain(ctr: torch.Tensor, head: Sequence[torch.Tensor]):
@@ -120,52 +238,62 @@ def _contiguous(*tensors) -> None:
             raise ValueError("kernel inputs must be contiguous")
 
 
-def bilstm_center_head(x, w_ih, w_hh, b, head):
-    """x [N, L, D] bf16 -> head logits at the window center, [N, R] f32."""
+def _launch(fn_name: str, device, *args) -> None:
+    from .build import library
+
+    with torch.cuda.device(device):
+        err = getattr(library("bilstm_fused"), fn_name)(
+            *args, torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{fn_name} failed: "
+                           f"{_ERRORS.get(err, f'cudaError {err}')}")
+
+
+def _require_packed(w_ih, w_hh, packed) -> torch.Tensor:
+    if packed is None:
+        raise ValueError("pass the layer's packed weights "
+                         "(BiLSTMLayer.kernel_weights()[3]): the kernel's "
+                         "wrapper packs nothing")
+    return _packed(w_ih, w_hh, packed)
+
+
+def bilstm_center_head(x, w_ih, w_hh, b, head,
+                       packed: Optional[torch.Tensor] = None,
+                       head_packed: Optional[Sequence[torch.Tensor]] = None):
+    """x [N, L, D] bf16 -> head logits at the window center, [N, R] f32.
+    On the card `packed` (pack_weights(w_ih, w_hh)) and `head_packed`
+    (pack_head(head)) are required."""
     _check(x, w_ih, w_hh, b)
     n, seq_len, d_in = x.shape
     hidden = w_hh.shape[1]
     _check_head(head, hidden, x.device)
     if x.device.type == "cpu":
         return bilstm_center_head_plain(x, w_ih, w_hh, b, head)
-    from .build import library
-
     wp, bp, wd, bd, wh, bh = head
     p_dim, q_dim, rows = wp.shape[0], wd.shape[0], wh.shape[0]
-    if not center_head_supported(seq_len, d_in, hidden, p_dim, q_dim):
-        raise ValueError(
-            "the CUDA kernel takes odd L, H a multiple of 16 up to 128, P "
-            f"and Q multiples of 16, within {SMEM_LIMIT} bytes of shared "
-            f"memory; got L={seq_len}, D={d_in}, H={hidden}, P={p_dim}, "
-            f"Q={q_dim}")
     _contiguous(x, w_ih, w_hh, b, *head)
+    wpk = _require_packed(w_ih, w_hh, packed)
+    wp_pk, wd_pk, wh_pk, bh_pad = _check_head_packed(head, head_packed)
     out = torch.empty(n, rows, dtype=torch.float32, device=x.device)
     if n and rows:
-        r_dim = _pad16(rows)
-        pad = (0, 0, 0, r_dim - rows)
-        packed = [pack_weights(w_ih, w_hh), pack_a_fragments(wp[None]),
-                  pack_a_fragments(wd[None]), pack_a_fragments(
-                      torch.nn.functional.pad(wh, pad)[None])]
-        bh_pad = torch.nn.functional.pad(bh, (0, r_dim - rows))
-        with torch.cuda.device(x.device):
-            err = library("bilstm_fused").nsp_bilstm_center_head(
-                x.data_ptr(), packed[0].data_ptr(), b.data_ptr(),
-                packed[1].data_ptr(), bp.data_ptr(), packed[2].data_ptr(),
-                bd.data_ptr(), packed[3].data_ptr(), bh_pad.data_ptr(),
-                out.data_ptr(), n, seq_len, d_in, hidden, p_dim, q_dim, r_dim,
-                rows, torch.cuda.current_stream(x.device).cuda_stream)
-        if err:
-            raise RuntimeError(
-                f"bilstm_center_head launch failed: cudaError {err} (N={n}, "
-                f"L={seq_len}, D={d_in}, H={hidden}, P={p_dim}, Q={q_dim}, "
-                f"R={rows})")
+        plan = plan_center_head(n, seq_len, d_in, hidden, p_dim, q_dim)
+        xk = _kernel_x(x, plan.d_x)
+        _launch("nsp_bilstm_center_head", x.device, xk.data_ptr(),
+                wpk.data_ptr(), b.data_ptr(), wp_pk.data_ptr(),
+                bp.data_ptr(), wd_pk.data_ptr(), bd.data_ptr(),
+                wh_pk.data_ptr(), bh_pad.data_ptr(), out.data_ptr(), n,
+                seq_len, plan.d_x, hidden, p_dim, q_dim, bh_pad.shape[0],
+                rows, plan.bn, plan.smem, plan.grid[0])
         LAUNCHES["bilstm_center_head"] += 1
     return out
 
 
-def bilstm2_center(x, w_ih1, w_hh1, b1, w_ih2, w_hh2, b2):
+def bilstm2_center(x, w_ih1, w_hh1, b1, w_ih2, w_hh2, b2,
+                   packed1: Optional[torch.Tensor] = None,
+                   packed2: Optional[torch.Tensor] = None):
     """x [N, L, D] bf16 through two layers of equal width -> layer 2's
-    state at t = L//2 of both directions, [N, 2H] f32."""
+    state at t = L//2 of both directions, [N, 2H] f32. On the card the
+    layers' packed weights (`packed1`, `packed2`) are required."""
     _check(x, w_ih1, w_hh1, b1)
     n, seq_len, d_in = x.shape
     hidden = w_hh1.shape[1]
@@ -175,29 +303,39 @@ def bilstm2_center(x, w_ih1, w_hh1, b1, w_ih2, w_hh2, b2):
     _check(x.new_empty(0, seq_len, 2 * hidden), w_ih2, w_hh2, b2)
     if x.device.type == "cpu":
         return bilstm2_center_plain(x, w_ih1, w_hh1, b1, w_ih2, w_hh2, b2)
-    from .build import library
-
-    if not two_layer_supported(seq_len, d_in, hidden):
-        raise ValueError(
-            "the CUDA kernel takes odd L and H a multiple of 16 up to 128, "
-            f"its slab within {SMEM_LIMIT} bytes of shared memory; got "
-            f"L={seq_len}, D={d_in}, H={hidden}")
     _contiguous(x, w_ih1, w_hh1, b1, w_ih2, w_hh2, b2)
+    wpk1 = _require_packed(w_ih1, w_hh1, packed1)
+    wpk2 = _require_packed(w_ih2, w_hh2, packed2)
     out = torch.empty(n, 2 * hidden, dtype=torch.float32, device=x.device)
     if n:
-        wpk1 = pack_weights(w_ih1, w_hh1)
-        wpk2 = pack_weights(w_ih2, w_hh2)
-        with torch.cuda.device(x.device):
-            err = library("bilstm_fused").nsp_bilstm2_center(
-                x.data_ptr(), wpk1.data_ptr(), b1.data_ptr(), wpk2.data_ptr(),
-                b2.data_ptr(), out.data_ptr(), n, seq_len, d_in, hidden,
-                torch.cuda.current_stream(x.device).cuda_stream)
-        if err:
-            raise RuntimeError(
-                f"bilstm2_center launch failed: cudaError {err} (N={n}, "
-                f"L={seq_len}, D={d_in}, H={hidden})")
+        plan = plan_two_layer(n, seq_len, d_in, hidden)
+        xk = _kernel_x(x, plan.d_x)
+        # layer 1's output, read back by layer 2 inside the same kernel
+        mid = torch.empty(n, seq_len, 2 * hidden, dtype=torch.bfloat16,
+                          device=x.device)
+        _launch("nsp_bilstm2_center", x.device, xk.data_ptr(),
+                wpk1.data_ptr(), b1.data_ptr(), wpk2.data_ptr(),
+                b2.data_ptr(), mid.data_ptr(), out.data_ptr(), n, seq_len,
+                plan.d_x, hidden, plan.bn, plan.smem, plan.grid[0])
         LAUNCHES["bilstm2_center"] += 1
     return out
+
+
+def fused_occupancy(plan: LayerPlan, head_dims: Optional[Tuple[int, int]]
+                    = None) -> int:
+    """Clusters of the plan the card holds at once
+    (cudaOccupancyMaxActiveClusters on the current device); `head_dims`
+    (P, Q) for a center + head plan."""
+    from .build import library
+
+    p_dim, q_dim = head_dims or (0, 0)
+    got = library("bilstm_fused").nsp_bilstm_fused_occupancy(
+        int(head_dims is not None), plan.d_x, plan.hidden, p_dim, q_dim,
+        plan.bn, plan.smem)
+    if got < 0:
+        raise RuntimeError(f"fused occupancy query failed: "
+                           f"{_ERRORS.get(got, f'cudaError {-got}')}")
+    return got
 
 
 def center_head_cost(n: int, seq_len: int, d_in: int, hidden: int,
@@ -215,7 +353,8 @@ def center_head_cost(n: int, seq_len: int, d_in: int, hidden: int,
 
 def two_layer_cost(n: int, seq_len: int, d_in: int, hidden: int):
     """(FLOP, bytes) of one call: every step of layer 1, the L//2 + 1
-    steps a direction of layer 2 must run; no inter-layer bytes."""
+    steps a direction of layer 2 must run; no inter-layer bytes (the
+    function needs none: the kernel's scratch is its own choice)."""
     flop1, bytes1 = layer_cost(n, seq_len, d_in, hidden, center=False)
     flop2, bytes2 = layer_cost(n, seq_len, 2 * hidden, hidden, center=True)
     between = n * seq_len * 2 * hidden * 2     # layer 1 out = layer 2 in

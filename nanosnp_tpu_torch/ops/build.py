@@ -4,9 +4,9 @@ Each source in `csrc/` compiles with `nvcc` into its own shared library
 with a plain C interface, loaded with ctypes. Nothing is built when a
 module is imported: the first call of a kernel wrapper builds its library
 into `ops/build/` (listed in .gitignore) under a name that carries the
-hash of the source, so an edited source is rebuilt and an unchanged one is
-reused within a checkout. `build_all()` starts one `nvcc` per source, all
-at once, and waits for them together.
+hash of the source and of the headers in `csrc/`, so an edited source is
+rebuilt and an unchanged one is reused within a checkout. `build_all()`
+starts one `nvcc` per source, all at once, and waits for them together.
 """
 from __future__ import annotations
 
@@ -48,11 +48,14 @@ SOURCES: Dict[str, Dict[str, List]] = {
     },
     "bilstm_fused": {
         # x, packed weights, b, packed wp, bp, packed wd, bd, packed wh, bh,
-        # out, n, seq_len, d_in, hidden, p, q, r (padded), n_out, stream
-        "nsp_bilstm_center_head": [_P] * 10 + [_I] * 8 + [_P],
-        # x, packed l1 weights, b1, packed l2 weights, b2, out, n, seq_len,
-        # d_in, hidden, stream
-        "nsp_bilstm2_center": [_P] * 6 + [_I] * 4 + [_P],
+        # out, n, seq_len, d_x, hidden, p, q, r (padded), n_out, bn, smem,
+        # grid_x, stream
+        "nsp_bilstm_center_head": [_P] * 10 + [_I] * 11 + [_P],
+        # x, packed l1 weights, b1, packed l2 weights, b2, mid scratch, out,
+        # n, seq_len, d_x, hidden, bn, smem, grid_x, stream
+        "nsp_bilstm2_center": [_P] * 7 + [_I] * 7 + [_P],
+        # head, d_x, hidden, p, q, bn, smem
+        "nsp_bilstm_fused_occupancy": [_I] * 7,
     },
     "lstm_train": {
         # xp, xp_bf16, packed w_hh^T, hs, n, seq_len, hidden, stream
@@ -106,8 +109,13 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Tuple[Path, Path]:
+    """The source and its library, named by the hash of the source and of
+    the headers beside it (`csrc/*.cuh`, which sources include)."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest = digest.hexdigest()[:12]
     return src, BUILD_DIR / f"lib{name}_{digest}.so"
 
 
@@ -139,6 +147,48 @@ def build_all() -> Dict[str, str]:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return reports
+
+
+def knock_out(src: str, start: str, end: str, parts) -> str:
+    """`src` with each (old, new) of `parts` replaced in its text from
+    `start` to `end`, where each old is found exactly once."""
+    k0 = src.index(start)
+    k1 = src.index(end, k0)
+    body = src[k0:k1]
+    for old, new in parts:
+        if body.count(old) != 1:
+            raise ValueError(f"anchor found {body.count(old)} times: "
+                             f"{old!r}")
+        body = body.replace(old, new)
+    return src[:k0] + body + src[k1:]
+
+
+def build_variants(name: str, texts: Dict[str, str]) -> Dict[str, ctypes.CDLL]:
+    """Edited copies of csrc/{name}.cu ({variant: source text}), each
+    compiled into ops/build/{name}_{variant}.so, one nvcc each, started
+    together, and loaded with the C signatures of `name`. For the card's
+    measurement tools; the sources in csrc/ are not touched."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for variant, text in texts.items():
+        cu = BUILD_DIR / f"{name}_{variant}.cu"
+        cu.write_text(text)
+        procs[variant] = subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o",
+             str(cu.with_suffix(".so")), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for variant, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name} {variant}:\n"
+                               f"{log[-3000:]}")
+        lib = ctypes.CDLL(str(BUILD_DIR / f"{name}_{variant}.so"))
+        for fn, argtypes in SOURCES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[variant] = lib
+    return libs
 
 
 def library(name: str) -> ctypes.CDLL:

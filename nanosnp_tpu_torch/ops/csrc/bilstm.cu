@@ -24,10 +24,14 @@
 //    nsp_bilstm_center. Taken where a direction's packed [4H, Kp] weights
 //    (Kp = Dp + H) fit in shared memory with the tiles: the pileup model's
 //    H=64 layers, 48 KiB (D 18) and 96 KiB (D 128). The weights are copied
-//    into shared memory once per block and read from there every step
-//    (the probe's kernel re-reads them from L2 every step). x_{t+1} is
-//    fetched with cp.async into a second buffer while step t computes, and
-//    h is double buffered, so a step has one barrier. Bound on the card: L
+//    into shared memory once per block, each unit group's four gates side
+//    by side, and read from there every step (the probe's kernel re-reads
+//    them from L2 every step). x_{t+1} is fetched with cp.async into a
+//    second buffer while step t computes, and h is double buffered, so a
+//    step has one barrier; a block of 128 rows steps as two groups of 64,
+//    each on its own named barrier. The layer's device code is
+//    bilstm_layer.cuh fused_layer, which bilstm_fused.cu's kernels share.
+//    Bound on the card: L
 //    dependent steps, each a short [4H, Kp] x [Kp, BN] tensor-core product
 //    plus gate math; the latency of a step, not bytes or operations (the bound,
 //    0.01-0.03 ms, is far below it). Weight bytes read from L2 per call:
@@ -72,36 +76,12 @@
 //       product, gate math, exchange), in N/BN x 2 / (clusters resident)
 //       rounds; reading xp back (0.66 ms at N=8192, L 33) is under it.
 //
-// Gate math on the SFU, no IEEE division and no tanhf: 6.5 SFU operations
-// a cell in place of 10.
-//   sigmoid(v) = 1 / (1 + ex2.approx(-v log2 e)), four of a cell (i, f, o
-//                and 2g) sharing one rcp.approx of their denominators'
-//                product, each v clamped at -20 so that product stays
-//                finite (the clamp moves sigmoid by at most 2.1e-9);
-//   tanh(v)    = 2 sigmoid(2v) - 1, two cells' tanh(c) sharing one rcp.
-// The PTX ISA bounds ex2.approx.ftz.f32 at 2 ulp and rcp.approx.ftz.f32 at
-// 1 ulp; with the products' roundings sigmoid is within 1e-6 of the exact
-// value and tanh within 2e-6 (absolute) over all finite v, and large |v|
-// saturates without NaN (ex2 gives +0 or a clamped finite value).
-// tests/test_torch_bilstm_plan.py holds the formulas to that bound.
+// Gate math on the SFU (bilstm_layer.cuh, shared with bilstm_fused.cu):
+// sigmoid within 1e-6 and tanh within 2e-6 of the exact values.
 
-#include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
-#include <cstdint>
-#include <type_traits>
-
-namespace cg = cooperative_groups;
+#include "bilstm_layer.cuh"
 
 namespace {
-
-constexpr int kSmemMax = 232448;  // dynamic shared memory a block may use
-constexpr int kRowPad = 8;        // bf16 pad per shared row (bank conflicts)
-constexpr int kNT = 4;            // n-tiles of 8 rows a warp: 32 batch rows
-constexpr int kPlanError = -1;    // the plan does not match the shape
-constexpr int kNoCluster = -2;    // no cluster of this plan fits the card
 
 // in-projection GEMM tiles
 constexpr int kGemmM = 256;       // gate rows a block: 4 warpgroups x 64
@@ -115,127 +95,6 @@ constexpr int kGemmSmem = kGemmStages * (kGemmStageA + kGemmStageB) * 16;
 // bytes
 constexpr int kDescLbo = 128;                 // next k group
 constexpr int kDescSbo = 2 * kGemmKT * 128;   // next row group
-
-__device__ __forceinline__ float ex2_approx(float v) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
-
-__device__ __forceinline__ float rcp_approx(float v) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
-
-// 1 + 2^(-v log2 e), the denominator of sigmoid(v); v is clamped at -20
-// so that a product of four stays finite (e^80 < 3.4e38), which moves
-// sigmoid by at most sigmoid(-20) = 2.1e-9
-__device__ __forceinline__ float sigmoid_den(float v) {
-  return 1.0f + ex2_approx(-1.4426950408889634f * fmaxf(v, -20.0f));
-}
-
-// sigmoid of four values for one reciprocal: 1/a = b c d / (a b c d)
-__device__ __forceinline__ void sigmoid4(float (&v)[4]) {
-  const float a = sigmoid_den(v[0]), b = sigmoid_den(v[1]);
-  const float c = sigmoid_den(v[2]), d = sigmoid_den(v[3]);
-  const float ab = a * b, cd = c * d;
-  const float r = rcp_approx(ab * cd);
-  const float r_ab = r * cd, r_cd = r * ab;  // 1/(ab), 1/(cd)
-  v[0] = b * r_ab;
-  v[1] = a * r_ab;
-  v[2] = d * r_cd;
-  v[3] = c * r_cd;
-}
-
-// tanh of two values, 2 sigmoid(2x) - 1, for one reciprocal; x is clamped
-// at -20 (tanh(-20) = -1 + 8.5e-18) so that the product stays finite
-__device__ __forceinline__ void tanh2(float& u, float& v) {
-  const float a = 1.0f + ex2_approx(-2.8853900817779268f * fmaxf(u, -20.0f));
-  const float b = 1.0f + ex2_approx(-2.8853900817779268f * fmaxf(v, -20.0f));
-  const float r = rcp_approx(a * b);
-  u = fmaf(2.0f, b * r, -1.0f);
-  v = fmaf(2.0f, a * r, -1.0f);
-}
-
-template <typename OutT>
-__device__ __forceinline__ OutT to_out(float v);
-template <>
-__device__ __forceinline__ float to_out<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 to_out<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint4& a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// cp.async of 16 or 4 bytes; an invalid source reads nothing and fills
-// zeros (src-size 0), src must still be a mapped address
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
-// the cluster barrier in two halves: arrive publishes this thread's
-// earlier writes (shared memory of any CTA of the cluster), wait returns
-// once every thread of the cluster has arrived and sees their writes
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// B fragments of two n-tiles (8 batch rows each, k contiguous in shared
-// memory): thread t gives the address of row t % 8 of matrix t / 8, where
-// matrices 0, 1 are the first n-tile's k 0-7 and 8-15 and 2, 3 the
-// second's; b[0], b[1] are then the first tile's b0, b1, b[2], b[3] the
-// second's
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&b)[4],
-                                            const __nv_bfloat16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-      : "r"(smem_u32(p)));
-}
-
-// this thread's ldmatrix_x4 row: (row in the pair of n-tiles, k offset)
-__device__ __forceinline__ int ldmatrix_offset(int lane, int ld) {
-  return ((lane >> 4) * 8 + (lane & 7)) * ld + ((lane >> 3) & 1) * 8;
-}
 
 // acc[g][nt] += A(gate g, k-tiles [ka, ka + count)) . B(the warp's 32 rows,
 // k-tiles [0, count) of the shared tile at b). wg[g] points at the lane's
@@ -263,48 +122,6 @@ __device__ __forceinline__ void mma_rows(float (&acc)[4][kNT][4],
   }
 }
 
-// One LSTM cell update on a thread's accumulator fragments. acc[g][nt][e]
-// holds gate g of unit j_lo (e < 2) or j_lo + 8 (e >= 2) for batch row
-// nt * 8 + 2 tig + (e & 1) of the warp's 32 rows; h[nt][e] receives h_t.
-// With kRegOut it writes the output of rows below n from the registers.
-// 6.5 SFU operations a cell: five ex2, one rcp for the four gates, half an
-// rcp for tanh(c) (two cells share it).
-template <bool kCenter, bool kRegOut, typename OutT>
-__device__ __forceinline__ void cell_update(
-    float (&acc)[4][kNT][4], float (&c)[kNT][4], float (&h)[kNT][4],
-    OutT* __restrict__ out, int n, int n_row0, int seq_len, int t,
-    int out_col_lo, int hidden, int tig) {
-  const int center = seq_len / 2;
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt) {
-    float og[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float g4[4] = {acc[0][nt][e], acc[1][nt][e], acc[3][nt][e],
-                     2.0f * acc[2][nt][e]};
-      sigmoid4(g4);  // sigmoid(i), sigmoid(f), sigmoid(o), sigmoid(2g)
-      c[nt][e] = g4[1] * c[nt][e] + g4[0] * fmaf(2.0f, g4[3], -1.0f);
-      og[e] = g4[2];
-      h[nt][e] = c[nt][e];
-    }
-    tanh2(h[nt][0], h[nt][1]);
-    tanh2(h[nt][2], h[nt][3]);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      h[nt][e] *= og[e];
-      const int row = n_row0 + nt * 8 + 2 * tig + (e & 1);
-      const int col = out_col_lo + (e < 2 ? 0 : 8);
-      if (kRegOut && row < n) {
-        if (!kCenter)
-          out[((size_t)row * seq_len + t) * 2 * hidden + col] =
-              to_out<OutT>(h[nt][e]);
-        else if (t == center)
-          out[(size_t)row * 2 * hidden + col] = to_out<OutT>(h[nt][e]);
-      }
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // 1. Fused layer, weights in shared memory (C = 1)
 //
@@ -312,8 +129,7 @@ __device__ __forceinline__ void cell_update(
 // wpk   [2, 4H/16, Kp/16, 32 lanes, 8] bf16 (ops/bilstm.py pack_weights)
 // bias  [2, 4H] f32
 // out   kCenter ? [n, 2H] f32 : [n, seq_len, 2H] OutT (dir 0 in [0, H))
-// block = (H/16) x (bn/32) warps: warp w owns units (w % (H/16)) * 16 ...
-// (all four gates) for batch rows (w / (H/16)) * 32 ...; grid =
+// block = (H/16) x (bn/32) warps (bilstm_layer.cuh fused_layer); grid =
 // (ceil(n / bn), 2 directions)
 // shared: weights 4H Kp, then x [2][bn][Dp + 8], then h [2][bn][H + 8]
 template <bool kCenter, typename OutT>
@@ -324,115 +140,18 @@ bilstm_fused_kernel(const __nv_bfloat16* __restrict__ x,
                     int n, int seq_len, int d_x, int hidden, int bn) {
   extern __shared__ uint4 smem_u4[];
   const int d_pad = (d_x + 15) / 16 * 16;
-  const int dp_tiles = d_pad / 16;
-  const int h_tiles = hidden / 16;
-  const int k_tiles = dp_tiles + h_tiles;
-  const int ldx = d_pad + kRowPad;
-  const int ldh = hidden + kRowPad;
-  const int w_u4 = 4 * h_tiles * k_tiles * 32;
+  const int w_u4 = 4 * hidden * (d_pad + hidden) / 8;
   uint4* s_w = smem_u4;
   __nv_bfloat16* s_x = reinterpret_cast<__nv_bfloat16*>(smem_u4 + w_u4);
-  __nv_bfloat16* s_h = s_x + 2 * bn * ldx;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int grp = lane >> 2;
-  const int tig = lane & 3;
-  const int ug = warp % h_tiles;  // unit group of 16
-  const int wn = warp / h_tiles;  // 32-row part of the tile
+  __nv_bfloat16* s_h = s_x + 2 * bn * (d_pad + kRowPad);
   const int dir = blockIdx.y;
-  const int n0 = blockIdx.x * bn;
 
   // the direction's weights, once
-  const uint4* wdir = wpk + (size_t)dir * w_u4;
-  for (int i = tid; i < w_u4; i += blockDim.x)
-    cp_async16(s_w + i, wdir + i, true);
+  cp_async_layer_weights(s_w, wpk + (size_t)dir * w_u4, hidden, d_x);
   cp_async_commit();
-  // zero both x buffers (the D padding stays zero) and both h buffers
-  // (h_{-1} = 0)
-  for (int i = tid; i < 2 * bn * (ldx + ldh); i += blockDim.x)
-    s_x[i] = __float2bfloat16_rn(0.0f);
-
-  const int center = seq_len / 2;
-  const int steps =
-      kCenter ? (dir == 0 ? center + 1 : seq_len - center) : seq_len;
-  const bool vec16 = d_x % 8 == 0;
-  const int chunk = vec16 ? 8 : 2;  // bf16 a copy
-  const int per_row = d_x / chunk;
-
-  auto fetch_x = [&](int s, int buf) {
-    const int t = dir == 0 ? s : seq_len - 1 - s;
-    __nv_bfloat16* dst = s_x + buf * bn * ldx;
-    for (int i = tid; i < bn * per_row; i += blockDim.x) {
-      const int r = i / per_row;
-      const int k = (i - r * per_row) * chunk;
-      const int row = n0 + r;
-      const bool ok = row < n;
-      const __nv_bfloat16* src =
-          x + ((size_t)(ok ? row : 0) * seq_len + t) * d_x + k;
-      if (vec16)
-        cp_async16(dst + r * ldx + k, src, ok);
-      else
-        cp_async4(dst + r * ldx + k, src, ok);
-    }
-    cp_async_commit();
-  };
-
-  const int j_lo = ug * 16 + grp;
-  float b_lo[4], b_hi[4];
-#pragma unroll
-  for (int g = 0; g < 4; ++g) {
-    b_lo[g] = bias[dir * 4 * hidden + g * hidden + j_lo];
-    b_hi[g] = bias[dir * 4 * hidden + g * hidden + j_lo + 8];
-  }
-  const uint4* wg[4];
-#pragma unroll
-  for (int g = 0; g < 4; ++g)
-    wg[g] = s_w + (size_t)(g * h_tiles + ug) * k_tiles * 32 + lane;
-  const int x_row = wn * 32 * ldx + ldmatrix_offset(lane, ldx);
-  const int h_row = wn * 32 * ldh + ldmatrix_offset(lane, ldh);
-
-  float c[kNT][4];
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[nt][e] = 0.0f;
-
-  __syncthreads();  // zeros before the first x copy lands on them
-  fetch_x(0, 0);
-
-  for (int s = 0; s < steps; ++s) {
-    const int t = dir == 0 ? s : seq_len - 1 - s;
-    cp_async_wait<0>();  // this thread's copies of x_t (and the weights)
-    // every copy visible; h_{t-1} written; every read of step s-1 done
-    __syncthreads();
-    if (s + 1 < steps) fetch_x(s + 1, (s + 1) & 1);
-
-    float acc[4][kNT][4];
-#pragma unroll
-    for (int g = 0; g < 4; ++g)
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        acc[g][nt][0] = b_lo[g];
-        acc[g][nt][1] = b_lo[g];
-        acc[g][nt][2] = b_hi[g];
-        acc[g][nt][3] = b_hi[g];
-      }
-    mma_rows(acc, wg, 0, s_x + (s & 1) * bn * ldx + x_row, ldx, dp_tiles);
-    mma_rows(acc, wg, dp_tiles, s_h + (s & 1) * bn * ldh + h_row, ldh,
-             h_tiles);
-    float h[kNT][4];
-    cell_update<kCenter, true, OutT>(acc, c, h, out, n, n0 + wn * 32, seq_len,
-                                     t, dir * hidden + j_lo, hidden, tig);
-    __nv_bfloat16* h_next = s_h + ((s + 1) & 1) * bn * ldh;
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        h_next[(wn * 32 + nt * 8 + 2 * tig + (e & 1)) * ldh + j_lo +
-               (e < 2 ? 0 : 8)] = __float2bfloat16_rn(h[nt][e]);
-  }
+  fused_layer<kCenter, true, OutT, 4>(x, s_w, bias + dir * 4 * hidden, out,
+                                      s_x, s_h, n, seq_len, d_x, hidden, bn,
+                                      dir, blockIdx.x * bn);
 }
 
 int fused_smem(int d_x, int hidden, int bn) {

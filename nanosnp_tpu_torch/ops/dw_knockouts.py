@@ -19,9 +19,7 @@ kernel as it is and is checked against `lstm_dw_reduce_plain`.
 """
 from __future__ import annotations
 
-import ctypes
 import json
-import subprocess
 
 import torch
 
@@ -46,14 +44,7 @@ SHAPES = [(512, 33, 256), (512, 11, 256)]
 def knock_out(src: str, parts) -> str:
     """csrc/lstm_train.cu with `parts` replaced in the dW kernel, each
     found there exactly once."""
-    k0, k1 = src.index(KERNEL), src.index(END)
-    body = src[k0:k1]
-    for old, new in parts:
-        if body.count(old) != 1:
-            raise ValueError(f"knock-out anchor found {body.count(old)} "
-                             f"times: {old!r}")
-        body = body.replace(old, new)
-    return src[:k0] + body + src[k1:]
+    return build.knock_out(src, KERNEL, END, parts)
 
 
 def main() -> int:
@@ -61,23 +52,10 @@ def main() -> int:
         raise SystemExit("dw_knockouts runs on the card: CUDA is not "
                          "available")
     src = (build.CSRC / "lstm_train.cu").read_text()
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, parts in VARIANTS.items():
-        cu = build.BUILD_DIR / f"lstm_train_dw_{name}.cu"
-        cu.write_text(knock_out(src, parts))
-        procs[name] = subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
-             str(cu.with_suffix(".so")), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log[-3000:]}")
-        lib = ctypes.CDLL(str(build.BUILD_DIR / f"lstm_train_dw_{name}.so"))
-        lib.nsp_lstm_dw.argtypes = build.SOURCES["lstm_train"]["nsp_lstm_dw"]
-        libs[name] = lib
+    libs = build.build_variants(
+        "lstm_train", {f"dw_{name}": knock_out(src, parts)
+                       for name, parts in VARIANTS.items()})
+    libs = {name[len("dw_"):]: lib for name, lib in libs.items()}
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(3)

@@ -21,7 +21,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
 
 import torch
 
@@ -141,16 +140,9 @@ def main(argv=None) -> int:
     if not 3 <= args.seq_len <= MAX_STEPS:
         raise SystemExit(f"--seq-len from 3 to {MAX_STEPS}")
     src = (build.CSRC / "lstm_train.cu").read_text()
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = "nostores" if args.no_stores else "stamps"
-    cu = build.BUILD_DIR / f"lstm_train_{tag}.cu"
-    so = cu.with_suffix(".so")
-    cu.write_text(instrument(src, args.no_stores))
-    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(so),
-                    str(cu)], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(so))
-    for fn, argtypes in build.SOURCES["lstm_train"].items():
-        getattr(lib, fn).argtypes = argtypes
+    lib = build.build_variants(
+        "lstm_train", {tag: instrument(src, args.no_stores)})[tag]
     lib.nsp_stamps.argtypes = [ctypes.c_void_p]
 
     dev = torch.device("cuda", 0)

@@ -168,7 +168,7 @@ def test_cta_weight_slice_is_its_units_rows(d_in, hidden, cluster):
 
 
 def _sigmoid4(v4):
-    """csrc/bilstm.cu sigmoid4 in f32: four sigmoids, one reciprocal of
+    """csrc/bilstm_layer.cuh sigmoid4 in f32: four sigmoids, one reciprocal of
     the product of their denominators 1 + ex2(-v log2 e), v >= -20."""
     den = [1.0 + torch.exp2(-LOG2E * torch.clamp(v, min=-20.0)) for v in v4]
     ab, cd = den[0] * den[1], den[2] * den[3]
@@ -178,7 +178,7 @@ def _sigmoid4(v4):
 
 
 def _tanh2(u, v):
-    """csrc/bilstm.cu tanh2 in f32: 2 sigmoid(2x) - 1 for two values, one
+    """csrc/bilstm_layer.cuh tanh2 in f32: 2 sigmoid(2x) - 1 for two values, one
     reciprocal, x >= -20."""
     a, b = (1.0 + torch.exp2(-2.0 * LOG2E * torch.clamp(w, min=-20.0))
             for w in (u, v))

@@ -236,15 +236,17 @@ def test_fused_wrappers_reject_bad_inputs_and_count_no_plain_calls():
 
 
 def test_kernel_limits_are_stated_rules():
-    # the pileup shapes fit; an even window, a wide layer or a long slab
-    # do not, and the encoder then takes the per-layer kernels
+    # the pileup shapes fit; an even window or a layer whose weights fill
+    # no CTA do not, and the encoder then takes the per-layer kernels
     assert F.center_head_supported(33, 128, 64, 128, 256)
     assert F.two_layer_supported(33, 18, 64)
     assert not F.center_head_supported(32, 128, 64, 128, 256)
     assert not F.center_head_supported(33, 512, 256, 128, 256)
     assert not F.two_layer_supported(33, 105, 256)
-    assert not F.two_layer_supported(65, 18, 64)     # slab past 227 KiB
-    assert F.two_layer_supported(11, 18, 128)
+    # layer 1's states pass through device memory: a long window fits
+    assert F.two_layer_supported(65, 18, 64)
+    # one direction of both layers' weights in a CTA: 48 + 384 KiB at H 128
+    assert not F.two_layer_supported(11, 18, 128)
     assert M.k_fusable(18, 64) and not M.k_fusable(128, 64)
 
 
