@@ -28,13 +28,14 @@
            nn.LSTM in training mode and, for dW, one f32 torch.bmm
            (yardsticks only).
   phase 1c holds the inference recurrence (f32 and bf16 xp; `plan_infer`:
-           the cluster forward at the CatModel's H=256, the packed kernel
+           the cluster forward at the CatModel's H=256, the smem forward
            at the pileup shape's H=64), the center + head kernel (24 and
            96 head rows) and the two-layer kernel (both on 2-CTA clusters)
            against their plain versions at N = 1, 65, 3001 and 8191 (the
-           tile of N=8192), the fused kernels twice for the same bits;
-           times them alone (weights packed once beforehand; at H=256 the
-           packed kernel beside the cluster one) and through their
+           tile of N=8192), each twice for the same bits; prints the smem
+           forward's blocks resident an SM; times them alone (weights
+           packed once beforehand; the packed kernel beside the cluster
+           and the smem one) and through their
            wrappers beside cuDNN nn.LSTM in inference mode (plus three
            torch.matmul for the head; yardsticks only) and the per-layer
            kernels of the fused kernels' routes, weights packed once,
@@ -43,12 +44,13 @@
            `lstm_recurrence` takes the inference kernel without gradients
            and the training kernels with them.
   phase 1d the knock-out probe of the pileup model's first layer
-           (ops/probe.py): each of its four modes against `probe_plain` at
-           N=8192, `full` (the older design of the layer) also against
-           `bilstm_stream` within its tolerance and timed in turns with it;
-           then the probe's entry point (`python -m
-           nanosnp_tpu_torch.ops.probe`), and the four times and three
-           shares on a line of their own.
+           (ops/probe.py, knock-outs of the layer code `bilstm_stream`
+           runs): `full` against `bilstm_stream` bit for bit at N = 1, 65,
+           3001, 8191 and 8192; each of the four modes against
+           `probe_plain` at N=8192; the modes timed alone and through the
+           wrapper, `full` and `bilstm_stream` alone in turns; then the
+           probe's entry point (`python -m nanosnp_tpu_torch.ops.probe`),
+           and the four times and three shares on a line of their own.
   phase 2  drives the serving slice through its entry points at full
            model width:
            s2-predict (CLI) on a 100k-candidate columnar shard with seeded
@@ -96,7 +98,8 @@ alone and through their wrappers and profiles both trainers' steps, with
 the package of TREE; `--train-turns PARENT` does so for PARENT and this
 tree in turns, parent, change, change, parent. `--fused-times TREE` and
 `--fused-turns PARENT` do the same for the two fused kernels and the
-per-layer kernels of their routes.
+per-layer kernels of their routes, and `--probe-times TREE` and
+`--probe-turns PARENT` for the probe's four modes and `bilstm_stream`.
 
 Prints a `{"kernels": [...]}` line, then as the last line
 `{"ok": true, "device": {...}}`. Exits non-zero on any failure, when no
@@ -157,6 +160,9 @@ PROBE_TOL = 4e-3        # bf16 output: one bf16 ulp below 1 (2^-8). Kernel and
                         # plain version sum in another order, which can flip
                         # the rounding of an h; 2e-3 holds only where |h| < 0.5
 PROBE_ITERS = 50        # launches a mode in the probe's timing loop
+# batch sizes where the probe's full mode must equal bilstm_stream bit for
+# bit: one row, one past a tile, off every tile, and the main path's tile
+N_PROBE_EQUAL = (1, 65, N_CHECK, N_WIDE, N_TIME)
 # the `call` world: an untagged BAM of all-match reads over two contigs
 CALL_TRAIN_LEN = 300_000    # training contig, bp
 CALL_LEN = 2_000_000        # calling contig: about 12 batches of 8192
@@ -744,8 +750,8 @@ def train_kernel_times(dev):
 
 
 def _turns(kind, parent):
-    """`python3 chip_smoke.py --{kind}-turns PARENT` (kind `train` or
-    `fused`): `--{kind}-times` of the tree at PARENT (a `git archive` of
+    """`python3 chip_smoke.py --{kind}-turns PARENT` (kind `train`, `fused`
+    or `probe`): `--{kind}-times` of the tree at PARENT (a `git archive` of
     the parent commit) and of this tree in turns, parent, change, change,
     parent, each in its own process; returns their rows, which `main`
     prints as one `{"{kind}_turns": [...]}` line."""
@@ -779,11 +785,7 @@ def _fused_cases(F, K, lib, dev, gen):
               `head` the head's weights (None for bilstm2_center);
       routes  {label: callable}: the per-layer route each fused kernel
               replaces, through its wrappers at N_TIME, weights packed
-              once.
-
-    A tree without `plan_two_layer` (e38cd51) has the one-block kernels,
-    whose wrappers pack their weights on every call and take none; once
-    that tree is no longer the parent its branches go."""
+              once."""
     import torch
 
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -797,7 +799,6 @@ def _fused_cases(F, K, lib, dev, gen):
                 u(2, hidden, 4 * hidden, scale=k).bfloat16(),
                 u(2, 4 * hidden, scale=2 * k))
 
-    new = hasattr(F, "plan_two_layer")
     seq_len, hidden, p_dim, q_dim = 33, 64, 128, 256
 
     def make_x1(n):
@@ -827,27 +828,15 @@ def _fused_cases(F, K, lib, dev, gen):
     routes = {"bilstm_stream + bilstm_center": lambda: K.bilstm_center(
         K.bilstm_stream(x1, *l1, packed=wpk1), *l2, packed=wpk2)}
     out2 = torch.empty(N_TIME, 2 * hidden, device=dev)
-    if new:
-        plan = F.plan_two_layer(N_TIME, seq_len, 18, hidden)
-        mid = torch.empty_like(x2)
-        alone["bilstm2_center"] = lambda: lib.nsp_bilstm2_center(
-            x1.data_ptr(), wpk1.data_ptr(), l1[2].data_ptr(),
-            wpk2.data_ptr(), l2[2].data_ptr(), mid.data_ptr(),
-            out2.data_ptr(), N_TIME, seq_len, plan.d_x, hidden, plan.bn,
-            plan.smem, plan.grid[0], stream)
-
-        def run2(x):
-            return F.bilstm2_center(x, *l1, *l2, wpk1, wpk2)
-    else:
-        alone["bilstm2_center"] = lambda: lib.nsp_bilstm2_center(
-            x1.data_ptr(), wpk1.data_ptr(), l1[2].data_ptr(),
-            wpk2.data_ptr(), l2[2].data_ptr(), out2.data_ptr(), N_TIME,
-            seq_len, 18, hidden, stream)
-
-        def run2(x):
-            return F.bilstm2_center(x, *l1, *l2)
+    plan = F.plan_two_layer(N_TIME, seq_len, 18, hidden)
+    mid = torch.empty_like(x2)
+    alone["bilstm2_center"] = lambda: lib.nsp_bilstm2_center(
+        x1.data_ptr(), wpk1.data_ptr(), l1[2].data_ptr(), wpk2.data_ptr(),
+        l2[2].data_ptr(), mid.data_ptr(), out2.data_ptr(), N_TIME, seq_len,
+        plan.d_x, hidden, plan.bn, plan.smem, plan.grid[0], stream)
     cases = {"bilstm2_center": SimpleNamespace(
-        run=run2, plain=lambda x: F.bilstm2_center_plain(x, *l1, *l2),
+        run=lambda x: F.bilstm2_center(x, *l1, *l2, wpk1, wpk2),
+        plain=lambda x: F.bilstm2_center_plain(x, *l1, *l2),
         make_x=make_x1, x=x1, head=None)}
     xh = make_xh(N_TIME)
     for n_rows in HEAD_ROWS:
@@ -865,19 +854,14 @@ def _fused_cases(F, K, lib, dev, gen):
                 out.data_ptr(), N_TIME, seq_len, 2 * hidden, hidden, p_dim,
                 q_dim, r_dim, n_rows)
         key = f"bilstm_center_head {n_rows} rows"
-        if new:
-            hp = F.plan_center_head(N_TIME, seq_len, 2 * hidden, hidden,
-                                    p_dim, q_dim)
-            head_pk = F.pack_head(head)
-            alone[key] = (lambda a=args, hp=hp, keep=(out, pk):
-                          lib.nsp_bilstm_center_head(
-                              *a, hp.bn, hp.smem, hp.grid[0], stream))
-            run = (lambda x, h=head, hk=head_pk: F.bilstm_center_head(
-                x, *l2, h, wpk2, hk))
-        else:
-            alone[key] = (lambda a=args, keep=(out, pk):
-                          lib.nsp_bilstm_center_head(*a, stream))
-            run = (lambda x, h=head: F.bilstm_center_head(x, *l2, h))
+        hp = F.plan_center_head(N_TIME, seq_len, 2 * hidden, hidden, p_dim,
+                                q_dim)
+        head_pk = F.pack_head(head)
+        alone[key] = (lambda a=args, hp=hp, keep=(out, pk):
+                      lib.nsp_bilstm_center_head(*a, hp.bn, hp.smem,
+                                                 hp.grid[0], stream))
+        run = (lambda x, h=head, hk=head_pk: F.bilstm_center_head(
+            x, *l2, h, wpk2, hk))
         cases[key] = SimpleNamespace(
             run=run, plain=(lambda x, h=head: F.bilstm_center_head_plain(
                 x, *l2, h)), make_x=make_xh, x=xh, head=head)
@@ -1223,13 +1207,15 @@ def phase_new_kernels(dev):
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     # ---- lstm_recurrence_infer: f32 and bf16 xp, the path of `plan_infer`
-    # (cluster at the CatModel's H=256, packed at H=64); at H=256 the
-    # packed kernel is timed beside it in the same run, as the design
-    # before
+    # (cluster at the CatModel's H=256, smem at the pileup shape's H=64),
+    # each against its plain version and twice for the same bits; the
+    # packed kernel (the design before at both widths) is timed beside it
+    # in the same run
     for label, seq_len, d_lib, hidden in INFER_SHAPES:
         lib = cudnn_ms(d_lib, hidden, seq_len)
-        path = T.plan_infer(N_TIME, seq_len, hidden).path
         for xp_dtype in (torch.float32, torch.bfloat16):
+            xp_bytes = torch.empty(0, dtype=xp_dtype).element_size()
+            path = T.plan_infer(N_TIME, seq_len, hidden, xp_bytes).path
             w = u(2, hidden, 4 * hidden,
                   scale=1.0 / math.sqrt(hidden)).bfloat16()
             tag = f"{label}, xp {str(xp_dtype).split('.')[-1]}"
@@ -1237,21 +1223,27 @@ def phase_new_kernels(dev):
             for n_check in N_INFER_CHECK:
                 xp = u(n_check, seq_len, 2, 4 * hidden, scale=3.0).to(
                     xp_dtype)
-                got = T.lstm_recurrence_infer(xp, w)
+                K.reset_launch_counts()
+                got, again = (T.lstm_recurrence_infer(xp, w),
+                              T.lstm_recurrence_infer(xp, w))
                 torch.cuda.synchronize()
                 e, rel = _errs(got, T.lstm_recurrence_infer_plain(xp, w))
+                same = torch.equal(got, again)
                 log(f"[check] lstm_recurrence_infer {tag:30s} ({path}) "
                     f"N={n_check} L={seq_len} H={hidden}: max|d|={e:.3e}, "
-                    f"over max(1, max|want|) {rel:.3e} (tol {TRAIN_TOL})")
-                if not rel <= TRAIN_TOL:
+                    f"over max(1, max|want|) {rel:.3e} (tol {TRAIN_TOL}), "
+                    f"second run the same bits: {same}")
+                if not (rel <= TRAIN_TOL and same
+                        and K.LAUNCHES["lstm_recurrence_infer"] == 2):
                     raise AssertionError(f"lstm_recurrence_infer {tag} "
-                                         f"N={n_check}: {rel} > {TRAIN_TOL}")
+                                         f"N={n_check}: {rel} > {TRAIN_TOL}"
+                                         f" or not the same bits twice")
                 err = max(err, e)
             xp = u(N_TIME, seq_len, 2, 4 * hidden, scale=3.0).to(xp_dtype)
             xp_bf16 = int(xp.dtype == torch.bfloat16)
             wpk = K.pack_a_fragments(w.transpose(1, 2))
             hs = torch.empty(N_TIME, seq_len, 2, hidden, device=dev)
-            plan = T.plan_infer(N_TIME, seq_len, hidden)
+            plan = T.plan_infer(N_TIME, seq_len, hidden, xp_bytes)
 
             def packed():
                 return library("lstm_train").nsp_lstm_infer(
@@ -1264,16 +1256,30 @@ def phase_new_kernels(dev):
                     N_TIME, seq_len, hidden, plan.cluster, plan.bn, plan.smem,
                     plan.grid[0], stream)
 
-            alone = cluster if path == "cluster" else packed
+            def smem():
+                return library("lstm_train").nsp_lstm_infer_smem(
+                    xp.data_ptr(), xp_bf16, w.data_ptr(), hs.data_ptr(),
+                    N_TIME, seq_len, hidden, plan.bn, plan.smem, plan.grid[0],
+                    stream)
+
+            alone = {"cluster": cluster, "smem": smem, "packed": packed}[path]
             if alone() != 0 or packed() != 0:
                 raise AssertionError(f"lstm_recurrence_infer {tag}: a launch "
                                      "of the kernel alone failed")
+            extra = {}
+            if path == "smem":
+                extra = dict(smem=plan.smem,
+                             blocks_an_sm=T.infer_smem_occupancy(xp_bytes))
+                log(f"[plan]  lstm_recurrence_infer {tag} (smem): "
+                    f"{plan.smem} B a block, {extra['blocks_an_sm']} blocks "
+                    f"an SM resident (cudaOccupancyMaxActiveBlocksPer"
+                    f"Multiprocessor), {plan.grid[0] * plan.grid[1]} blocks")
             record("lstm_recurrence_infer", tag, err, TRAIN_TOL,
                    lambda: T.lstm_recurrence_infer(xp, w), alone,
                    lambda: T.lstm_recurrence_infer_plain(xp, w), lib,
-                   T.infer_cost(N_TIME, seq_len, hidden, xp.element_size()),
-                   L=seq_len, H=hidden, path=path)
-            if path == "cluster":
+                   T.infer_cost(N_TIME, seq_len, hidden, xp_bytes),
+                   L=seq_len, H=hidden, path=path, **extra)
+            if path != "packed":
                 rows[-1]["packed_ms"] = cuda_time(packed, 10)
                 log(f"[time]  the packed kernel alone at the same shape: "
                     f"{rows[-1]['packed_ms']:.3f} ms")
@@ -1875,15 +1881,61 @@ def phase_train(dev):
     return launches, rows
 
 
+def _probe_alone(P, K, x, w_ih, w_hh, b):
+    """{label: callable} launching each probe mode, and `bilstm_stream`,
+    alone through their C entry points at x's shape: the plan, the packed
+    weights and the outputs made beforehand."""
+    import torch
+
+    from nanosnp_tpu_torch.ops.build import library
+
+    n, seq_len, d_in = x.shape
+    hidden = w_hh.shape[1]
+    plan = P.probe_plan(n, seq_len, d_in, hidden)
+    wpk = K.pack_weights(w_ih, w_hh)
+    outs = [torch.empty(n, seq_len, 2 * hidden, dtype=torch.bfloat16,
+                        device=x.device) for _ in range(2)]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    common = (n, seq_len, plan.d_x, hidden, plan.bn, plan.smem, plan.grid[0])
+    alone = {mode: (lambda m=i: library("bilstm_probe").nsp_bilstm_probe(
+        x.data_ptr(), wpk.data_ptr(), b.data_ptr(), outs[0].data_ptr(),
+        *common, m, stream)) for i, mode in enumerate(P.MODES)}
+    alone["bilstm_stream"] = lambda: library("bilstm").nsp_bilstm_stream(
+        x.data_ptr(), wpk.data_ptr(), b.data_ptr(), outs[1].data_ptr(), 0,
+        *common, stream)
+    for label, fn in alone.items():
+        if fn() != 0:
+            raise AssertionError(f"{label}: a launch of the kernel alone "
+                                 "failed")
+    return alone
+
+
 def phase_probe(dev):
-    """Phase 1d: the four modes of the probe kernel against `probe_plain`,
-    their times and shares, and the probe's entry point."""
+    """Phase 1d: the probe's `full` mode against `bilstm_stream`, bit for
+    bit, at N_PROBE_EQUAL; its four modes against `probe_plain`; their
+    times alone and through the wrapper and the three shares; `full` and
+    `bilstm_stream` alone in turns; the probe's entry point."""
     import torch
 
     from nanosnp_tpu_torch.ops import bilstm as K
     from nanosnp_tpu_torch.ops import probe as P
 
     seq_len, d_in, hidden = 33, 18, 64
+    # full is bilstm_stream's code on bilstm_stream's plan: the same bits
+    # at every tile the plans take (N=8191 and 8192 both take 64 rows)
+    for n in N_PROBE_EQUAL:
+        x, w_ih, w_hh, b = P.probe_inputs(n, dev, seq_len, d_in, hidden,
+                                          seed=SEED + n)
+        got = P.bilstm_probe(x, w_ih, w_hh, b, "full")
+        want = K.bilstm_stream(x, w_ih, w_hh, b, torch.bfloat16)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        log(f"[check] bilstm_probe   full against bilstm_stream N={n} "
+            f"(plan bn {P.probe_plan(n, seq_len, d_in, hidden).bn}): the "
+            f"same bits: {same}")
+        if not same:
+            raise AssertionError(f"probe mode full differs from "
+                                 f"bilstm_stream at N={n}")
     x, w_ih, w_hh, b = P.probe_inputs(N_TIME, dev, seq_len, d_in, hidden,
                                       seed=SEED)
     errs = {}
@@ -1896,36 +1948,19 @@ def phase_probe(dev):
         if not errs[mode] <= PROBE_TOL:
             raise AssertionError(f"bilstm_probe {mode}: max|d| {errs[mode]} "
                                  f"> {PROBE_TOL}")
-    # the probe keeps the older design of the layer (weights from L2
-    # every step, IEEE gate math); bilstm_stream's redesign sums and rounds in
-    # another order, so the two agree within the bf16 tolerance, not bit
-    # for bit
-    same = (P.bilstm_probe(x, w_ih, w_hh, b, "full").float()
-            - K.bilstm_stream(x, w_ih, w_hh, b,
-                              torch.bfloat16).float()).abs().max().item()
-    log(f"[check] bilstm_probe   full against bilstm_stream: max|d|={same} "
-        f"(tol {STREAM_TOL})")
-    if not same <= STREAM_TOL:
-        raise AssertionError("probe mode full disagrees with bilstm_stream")
-    # the older design (probe full) and the redesigned bilstm_stream, kernels
-    # alone (weights packed once), in turns: probe, stream, stream, probe
-    packed = K.pack_weights(w_ih, w_hh)
-    turns = []
-    for fn in ("probe", "stream", "stream", "probe"):
-        turns.append(cuda_time(
-            (lambda: P.bilstm_probe(x, w_ih, w_hh, b, "full", packed))
-            if fn == "probe" else
-            (lambda: K.bilstm_stream(x, w_ih, w_hh, b, torch.bfloat16,
-                                     packed)), PROBE_ITERS))
+    # the kernels alone, and full against bilstm_stream in turns: full,
+    # stream, stream, full (the same code: their gap is the noise)
+    alone = _probe_alone(P, K, x, w_ih, w_hh, b)
+    ms = {m: cuda_time(alone[m], PROBE_ITERS) for m in P.MODES}
+    turns = [cuda_time(alone[k], PROBE_ITERS) for k in
+             ("full", "bilstm_stream", "bilstm_stream", "full")]
     in_turns = {"probe_full_ms": (turns[0] + turns[3]) / 2,
                 "bilstm_stream_ms": (turns[1] + turns[2]) / 2,
                 "turns_ms": turns}
-    log(f"[time]  (33, 18, 64) in turns, kernels alone: probe full (older "
-        f"design) {in_turns['probe_full_ms']:.4f} ms, bilstm_stream "
+    log(f"[time]  (33, 18, 64) in turns, kernels alone: probe full "
+        f"{in_turns['probe_full_ms']:.4f} ms, bilstm_stream "
         f"{in_turns['bilstm_stream_ms']:.4f} ms {json.dumps(turns)}")
-
-    # the kernel alone: weights packed once, CUDA events around the launches
-    ms = P.time_modes(x, w_ih, w_hh, b, PROBE_ITERS)
+    wrapper_ms = P.time_modes(x, w_ih, w_hh, b, PROBE_ITERS)
     plain_ms = {m: cuda_time(lambda: P.probe_plain(x, w_ih, w_hh, b, m), 2)
                 for m in P.MODES}
     lstm = torch.nn.LSTM(d_in, hidden, batch_first=True, bidirectional=True,
@@ -1945,16 +1980,21 @@ def phase_probe(dev):
         t_bytes = cost[mode][1] / PEAK_BYTES * 1e3
         rows.append(dict(
             name="bilstm_probe", shape=mode, L=seq_len, D=d_in, H=hidden,
-            max_abs_err=errs[mode], ms=ms[mode], plain_ms=plain_ms[mode],
+            max_abs_err=errs[mode], ms=ms[mode], wrapper_ms=wrapper_ms[mode],
+            plain_ms=plain_ms[mode],
             # cuDNN computes the full layer only
             library_ms=library_ms if mode == "full" else None,
             bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes"))
-        log(f"[time]  bilstm_probe   {mode:7s} N={N_TIME}: kernel "
-            f"{ms[mode]:.4f} ms, plain {plain_ms[mode]:.3f} ms, bound "
-            f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']})")
+        log(f"[time]  bilstm_probe   {mode:7s} N={N_TIME}: alone "
+            f"{ms[mode]:.4f} ms, wrapper {wrapper_ms[mode]:.4f} ms, plain "
+            f"{plain_ms[mode]:.3f} ms, bound {rows[-1]['bound_ms']:.4f} ms "
+            f"({rows[-1]['bound_by']})")
     log(json.dumps({"probe": {"N": N_TIME, "iters": PROBE_ITERS, "ms": ms,
-                              "shares": P.shares(ms), "in_turns": in_turns}}))
+                              "wrapper_ms": wrapper_ms,
+                              "shares": P.shares(ms),
+                              "wrapper_shares": P.shares(wrapper_ms),
+                              "in_turns": in_turns}}))
 
     # the entry point a user calls; its launches are the path's count
     K.reset_launch_counts()
@@ -1962,6 +2002,28 @@ def phase_probe(dev):
         raise AssertionError("the probe's entry point failed")
     torch.cuda.synchronize()
     return rows, {"probe": dict(K.LAUNCHES)}
+
+
+def probe_kernel_times(dev):
+    """The probe's four modes and `bilstm_stream` through their wrappers
+    (weights packed once) at N_TIME, in the package on sys.path, and the
+    shares. One process a tree: `python3 chip_smoke.py --probe-times
+    TREE`."""
+    import torch
+
+    from nanosnp_tpu_torch.ops import bilstm as K
+    from nanosnp_tpu_torch.ops import build
+    from nanosnp_tpu_torch.ops import probe as P
+
+    build.build_all()
+    x, w_ih, w_hh, b = P.probe_inputs(N_TIME, dev, seed=SEED)
+    row = P.time_modes(x, w_ih, w_hh, b, PROBE_ITERS)
+    packed = K.pack_weights(w_ih, w_hh)
+    row["bilstm_stream"] = cuda_time(lambda: K.bilstm_stream(
+        x, w_ih, w_hh, b, torch.bfloat16, packed), PROBE_ITERS)
+    row["shares"] = P.shares(row)
+    log("[probe-times] " + json.dumps(row))
+    return row
 
 
 def _call_world(rng, work):
@@ -2367,7 +2429,8 @@ def main() -> int:
         return 2
     args = sys.argv[1:]
     if args and args[0] in ("--train-times", "--train-turns",
-                            "--fused-times", "--fused-turns") \
+                            "--fused-times", "--fused-turns",
+                            "--probe-times", "--probe-turns") \
             and len(args) == 2:
         log(_card())
         if args[0].endswith("-turns"):
@@ -2377,6 +2440,10 @@ def main() -> int:
         sys.path[:0] = [os.path.abspath(args[1]), ROOT]
         if args[0] == "--fused-times":
             log(json.dumps({"fused_times": fused_kernel_times(
+                torch.device("cuda", 0))}))
+            return 0
+        if args[0] == "--probe-times":
+            log(json.dumps({"probe_times": probe_kernel_times(
                 torch.device("cuda", 0))}))
             return 0
         log(json.dumps({"train_times": train_kernel_times(

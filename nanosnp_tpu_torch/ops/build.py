@@ -43,8 +43,9 @@ SOURCES: Dict[str, Dict[str, List]] = {
         "nsp_bilstm_cluster_occupancy": [_I] * 4,
     },
     "bilstm_probe": {
-        # x, packed weights, b, out, mode, n, seq_len, d_in, hidden, stream
-        "nsp_bilstm_probe": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # x, packed weights, b, out, n, seq_len, d_x, hidden, bn, smem,
+        # grid_x, mode, stream
+        "nsp_bilstm_probe": [_P] * 4 + [_I] * 8 + [_P],
     },
     "bilstm_fused": {
         # x, packed weights, b, packed wp, bp, packed wd, bd, packed wh, bh,
@@ -83,6 +84,11 @@ SOURCES: Dict[str, Dict[str, List]] = {
         # xp, xp_bf16, w_hh, hs, n, seq_len, hidden, cluster, bn, smem,
         # grid_x, stream
         "nsp_lstm_infer_cluster": [_P, _I, _P, _P] + [_I] * 7 + [_P],
+        # the smem path: xp, xp_bf16, w_hh, hs, n, seq_len, hidden, bn, smem,
+        # grid_x, stream
+        "nsp_lstm_infer_smem": [_P, _I, _P, _P] + [_I] * 6 + [_P],
+        # xp_bf16, smem
+        "nsp_lstm_infer_smem_occupancy": [_I] * 2,
         # sweep, smem
         "nsp_lstm_cluster_occupancy": [_I] * 2,
     },

@@ -25,19 +25,19 @@
 //    (Kp = Dp + H) fit in shared memory with the tiles: the pileup model's
 //    H=64 layers, 48 KiB (D 18) and 96 KiB (D 128). The weights are copied
 //    into shared memory once per block, each unit group's four gates side
-//    by side, and read from there every step (the probe's kernel re-reads
-//    them from L2 every step). x_{t+1} is fetched with cp.async into a
-//    second buffer while step t computes, and h is double buffered, so a
-//    step has one barrier; a block of 128 rows steps as two groups of 64,
-//    each on its own named barrier. The layer's device code is
-//    bilstm_layer.cuh fused_layer, which bilstm_fused.cu's kernels share.
+//    by side, and read from there every step. x_{t+1} is fetched with
+//    cp.async into a second buffer while step t computes, and h is double
+//    buffered, so a step has one barrier; a block of 128 rows steps as two
+//    groups of 64, each on its own named barrier. The layer's device code
+//    is bilstm_layer.cuh fused_layer, which bilstm_fused.cu's kernels and
+//    the probe (bilstm_probe.cu, its knock-outs) share.
 //    Bound on the card: L
 //    dependent steps, each a short [4H, Kp] x [Kp, BN] tensor-core product
 //    plus gate math; the latency of a step, not bytes or operations (the bound,
 //    0.01-0.03 ms, is far below it). Weight bytes read from L2 per call:
 //    blocks x 4H Kp 2, once per block: 12 MiB at N=8192 (D 18 with BN 64,
 //    D 128 with BN 128), in place of 0.8 GB when they were re-read every
-//    step for every 32 rows (the probe's kernel, bilstm_probe.cu).
+//    step for every 32 rows (the first design of this kernel).
 //
 // 2. Split, for H=256 (the haplotype model), where one direction's weights
 //    (736 KiB at D 105, 1.5 MiB at D 512) do not fit an SM:
@@ -154,22 +154,13 @@ bilstm_fused_kernel(const __nv_bfloat16* __restrict__ x,
                                       dir, blockIdx.x * bn);
 }
 
-int fused_smem(int d_x, int hidden, int bn) {
-  const int d_pad = (d_x + 15) / 16 * 16;
-  return 4 * hidden * (d_pad + hidden) * 2 +
-         2 * bn * (d_pad + kRowPad) * 2 + 2 * bn * (hidden + kRowPad) * 2;
-}
-
 template <bool kCenter, typename OutT>
 int launch_fused(const void* x, const void* wpk, const void* b, void* out,
                  int n, int seq_len, int d_x, int hidden, int bn, int smem,
                  int grid_x, cudaStream_t stream) {
-  const int warps = hidden / 16 * (bn / 32);
-  if (n <= 0 || seq_len <= 0 || d_x <= 0 || d_x % 2 || hidden <= 0 ||
-      hidden % 16 || bn <= 0 || bn % 32 || warps > 16 ||
-      smem != fused_smem(d_x, hidden, bn) || smem > kSmemMax ||
-      grid_x != (n + bn - 1) / bn)
+  if (!fused_plan_ok(n, seq_len, d_x, hidden, bn, smem, grid_x))
     return kPlanError;
+  const int warps = hidden / 16 * (bn / 32);
   auto kernel = bilstm_fused_kernel<kCenter, OutT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

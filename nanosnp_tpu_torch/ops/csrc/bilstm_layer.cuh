@@ -18,6 +18,23 @@
 // value and tanh within 2e-6 (absolute) over all finite v, and large |v|
 // saturates without NaN (ex2 gives +0 or a clamped finite value).
 // tests/test_torch_bilstm_plan.py holds the formulas to that bound.
+//
+// Knock-outs. `fused_layer` and `cell_update` take a KnockOut parameter,
+// none by default; the probe (bilstm_probe.cu) builds the layer with one
+// part of a step removed, so that timing the variants says where a step's
+// time sits. Every branch on it is an `if constexpr` (the x buffer's index a
+// conditional expression on it, folded at compile time): the default
+// compiles to the layer as it is, the same SASS (ops/sass_compare.py; a
+// helper function returning that index changed the center kernels' code).
+//   kNoGate  the gate math on the SFU (sigmoid4, tanh2) replaced by a
+//            linear combine, c = 0.5 c + 0.25 (g_i + g_f),
+//            h = 0.5 c + 0.125 (g_g + g_o);
+//   kNoMm    no W_hh . h product: gates = W_ih x_t + b; h is still
+//            rounded, written to the shared h tile and output (the x
+//            product is unrolled one k-tile deep, see fused_layer);
+//   kNoDma   x is staged once: the slab of the direction's first step
+//            (x[0] for direction 0, x[L-1] for direction 1) serves every
+//            step, so no step waits for or starts a copy of x.
 
 #pragma once
 
@@ -38,6 +55,8 @@ constexpr int kRowPad = 8;        // bf16 pad per shared row (bank conflicts)
 constexpr int kNT = 4;            // n-tiles of 8 rows a warp: 32 batch rows
 constexpr int kPlanError = -1;    // the plan does not match the shape
 constexpr int kNoCluster = -2;    // no cluster of this plan fits the card
+
+enum class KnockOut { kNone = 0, kNoGate = 1, kNoMm = 2, kNoDma = 3 };
 
 __device__ __forceinline__ float ex2_approx(float v) {
   float r;
@@ -165,8 +184,9 @@ __device__ __forceinline__ int ldmatrix_offset(int lane, int ld) {
 // nt * 8 + 2 tig + (e & 1) of the warp's 32 rows; h[nt][e] receives h_t.
 // With kRegOut it writes the output of rows below n from the registers.
 // 6.5 SFU operations a cell: five ex2, one rcp for the four gates, half an
-// rcp for tanh(c) (two cells share it).
-template <bool kCenter, bool kRegOut, typename OutT>
+// rcp for tanh(c) (two cells share it); none under KnockOut::kNoGate.
+template <bool kCenter, bool kRegOut, typename OutT,
+          KnockOut kKnock = KnockOut::kNone>
 __device__ __forceinline__ void cell_update(
     float (&acc)[4][kNT][4], float (&c)[kNT][4], float (&h)[kNT][4],
     OutT* __restrict__ out, int n, int n_row0, int seq_len, int t,
@@ -177,18 +197,25 @@ __device__ __forceinline__ void cell_update(
     float og[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      float g4[4] = {acc[0][nt][e], acc[1][nt][e], acc[3][nt][e],
-                     2.0f * acc[2][nt][e]};
-      sigmoid4(g4);  // sigmoid(i), sigmoid(f), sigmoid(o), sigmoid(2g)
-      c[nt][e] = g4[1] * c[nt][e] + g4[0] * fmaf(2.0f, g4[3], -1.0f);
-      og[e] = g4[2];
-      h[nt][e] = c[nt][e];
+      if constexpr (kKnock == KnockOut::kNoGate) {
+        c[nt][e] = 0.5f * c[nt][e] + 0.25f * (acc[0][nt][e] + acc[1][nt][e]);
+        h[nt][e] = 0.5f * c[nt][e] + 0.125f * (acc[2][nt][e] + acc[3][nt][e]);
+      } else {
+        float g4[4] = {acc[0][nt][e], acc[1][nt][e], acc[3][nt][e],
+                       2.0f * acc[2][nt][e]};
+        sigmoid4(g4);  // sigmoid(i), sigmoid(f), sigmoid(o), sigmoid(2g)
+        c[nt][e] = g4[1] * c[nt][e] + g4[0] * fmaf(2.0f, g4[3], -1.0f);
+        og[e] = g4[2];
+        h[nt][e] = c[nt][e];
+      }
     }
-    tanh2(h[nt][0], h[nt][1]);
-    tanh2(h[nt][2], h[nt][3]);
+    if constexpr (kKnock != KnockOut::kNoGate) {
+      tanh2(h[nt][0], h[nt][1]);
+      tanh2(h[nt][2], h[nt][3]);
+    }
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      h[nt][e] *= og[e];
+      if constexpr (kKnock != KnockOut::kNoGate) h[nt][e] *= og[e];
       const int row = n_row0 + nt * 8 + 2 * tig + (e & 1);
       const int col = out_col_lo + (e < 2 ? 0 : 8);
       if (kRegOut && row < n) {
@@ -269,6 +296,26 @@ __device__ __forceinline__ void zero_smem(__nv_bfloat16* p, int count) {
     reinterpret_cast<uint4*>(p)[i] = make_uint4(0, 0, 0, 0);
 }
 
+// shared memory of a fused layer block (bilstm.cu's kernels and the
+// probe's): the direction's weights 4H Kp, x [2][bn][Dp + 8], h [2][bn][H +
+// 8], all bf16
+inline int fused_smem(int d_x, int hidden, int bn) {
+  const int d_pad = (d_x + 15) / 16 * 16;
+  return 4 * hidden * (d_pad + hidden) * 2 +
+         2 * bn * (d_pad + kRowPad) * 2 + 2 * bn * (hidden + kRowPad) * 2;
+}
+
+// whether a fused layer plan (ops/bilstm.py plan_layer) matches the shape:
+// d_x even, (H/16) (bn/32) warps, at most 16, the block's shared memory
+inline bool fused_plan_ok(int n, int seq_len, int d_x, int hidden, int bn,
+                          int smem, int grid_x) {
+  return n > 0 && seq_len > 0 && d_x > 0 && d_x % 2 == 0 && hidden > 0 &&
+         hidden % 16 == 0 && bn > 0 && bn % 32 == 0 &&
+         hidden / 16 * (bn / 32) <= 16 &&
+         smem == fused_smem(d_x, hidden, bn) && smem <= kSmemMax &&
+         grid_x == (n + bn - 1) / bn;
+}
+
 // One direction of a fused layer on a tile of `bn` batch rows from n0.
 //
 // x     [n, seq_len, d_x] bf16, d_x even
@@ -290,13 +337,19 @@ __device__ __forceinline__ void zero_smem(__nv_bfloat16* p, int count) {
 // step has one barrier. A bf16 stream output is copied from the shared h
 // tile in 16-byte rows during the next step. Returns the steps run; the
 // last step's bf16 h is then in s_h + (steps & 1) bn (H + 8), whole once
-// the block has passed a barrier.
-template <bool kCenter, bool kRegOut, typename OutT, int kUnroll>
+// the block has passed a barrier. kKnock removes a part of the step (the
+// knock-outs above).
+template <bool kCenter, bool kRegOut, typename OutT, int kUnroll,
+          KnockOut kKnock = KnockOut::kNone>
 __device__ __forceinline__ int fused_layer(
     const __nv_bfloat16* __restrict__ x, const uint4* s_w,
     const float* __restrict__ bias, OutT* __restrict__ out,
     __nv_bfloat16* s_x, __nv_bfloat16* s_h, int n, int seq_len, int d_x,
     int hidden, int bn, int dir, int n0) {
+  // the x product's unroll: kUnroll, but one k-tile deep under
+  // KnockOut::kNoMm, where it is the step's only product and four deep
+  // spills (228 B a thread, ptxas) as one deep does not
+  constexpr int kXUnroll = kKnock == KnockOut::kNoMm ? 1 : kUnroll;
   const int d_pad = (d_x + 15) / 16 * 16;
   const int dp_tiles = d_pad / 16;
   const int h_tiles = hidden / 16;
@@ -395,7 +448,9 @@ __device__ __forceinline__ int fused_layer(
     // the group's copies visible; its h_{t-1} written; its reads of step
     // s-1 done
     group_sync(1 + g_id, g_threads);
-    if (s + 1 < steps) fetch_x(s + 1, (s + 1) & 1);
+    if constexpr (kKnock != KnockOut::kNoDma) {
+      if (s + 1 < steps) fetch_x(s + 1, (s + 1) & 1);
+    }
     if constexpr (kSmemOut) {
       if (s > 0) store_h(s - 1);  // its buffer is read-only in this step
     }
@@ -410,13 +465,16 @@ __device__ __forceinline__ int fused_layer(
         acc[g][nt][2] = b_hi[g];
         acc[g][nt][3] = b_hi[g];
       }
-    mma_gates<kUnroll>(acc, w_ug, 0, s_x + (s & 1) * bn * ldx + x_row, ldx,
-                       dp_tiles);
-    mma_gates<kUnroll>(acc, w_ug, dp_tiles, s_h + (s & 1) * bn * ldh + h_row,
-                       ldh, h_tiles);
+    mma_gates<kXUnroll>(acc, w_ug, 0,
+                        s_x + (kKnock == KnockOut::kNoDma ? 0 : s & 1) * bn *
+                                  ldx + x_row,
+                        ldx, dp_tiles);
+    if constexpr (kKnock != KnockOut::kNoMm)
+      mma_gates<kUnroll>(acc, w_ug, dp_tiles,
+                         s_h + (s & 1) * bn * ldh + h_row, ldh, h_tiles);
     float h[kNT][4];
     cell_update<kCenter, kRegOut && !kSmemOut && decltype(emit)::value,
-                OutT>(
+                OutT, kKnock>(
         acc, c, h, out, n, n0 + wn * 32, seq_len, t, dir * hidden + j_lo,
         hidden, tig);
     __nv_bfloat16* h_next = s_h + ((s + 1) & 1) * bn * ldh;

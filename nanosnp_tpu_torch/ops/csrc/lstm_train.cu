@@ -5,7 +5,7 @@
 // Replaces the Pallas TPU kernels of nanosnp_tpu/ops/pallas_lstm.py behind
 // the custom VJP `_recurrence` (its primal, and the differentiable
 // recurrence of training):
-//   nsp_lstm_infer_cluster, nsp_lstm_infer
+//   nsp_lstm_infer_smem, nsp_lstm_infer_cluster, nsp_lstm_infer
 //                 <- _kernel       (no gradient wanted: streams h_t only,
 //                                    xp f32 or bf16)
 //   nsp_lstm_fwd_smem, nsp_lstm_fwd_cluster, nsp_lstm_fwd
@@ -25,7 +25,7 @@
 //   xp, dxp [n, L, 2, 4H] f32   input projections x W_ih + b / their grads
 //   hs, cs  [n, L, 2, H]  f32   h_t and c_t, direction d at [..., d, :]
 //   g       [n, L, 2, H]  f32   gradient of the loss with respect to hs
-// (the inference kernel also takes xp in bf16 and widens it on load)
+// (the inference kernels also take xp in bf16 and widen it to f32)
 //   dW      [2, H, 4H]    bf16  gradient of w_hh (x @ w layout)
 // Gate order i, f, g, o. h and c start at zero.
 //
@@ -46,8 +46,8 @@
 // for the inference kernels, which move xp in and hs out and nothing else.
 // Training takes one of three designs, picked per call by the wrapper's
 // plan (ops/lstm_train.plan_train), which the launchers check; inference
-// the cluster forward at H=256 and the packed one elsewhere
-// (ops/lstm_train.plan_infer):
+// the smem forward at H=64, the cluster forward at H=256 and the packed one
+// elsewhere (ops/lstm_train.plan_infer):
 //
 // 1. smem (nsp_lstm_fwd_smem, nsp_lstm_bwd_smem), H=64, the pileup model
 //    (the kernels are templates on H, built for 64): one block per
@@ -78,6 +78,14 @@
 //      It writes its partial once; a second small launch sums the partials
 //      in tile order and rounds to bf16. Nothing is read back for dW, and
 //      there are no atomics: the gradient is the same on every run.
+//    - Inference (nsp_lstm_infer_smem) is the forward kernel without the
+//      c_t stream: one template. A bf16 xp is staged by cp.async as bf16
+//      ([2][32][4H + 8], 16-byte pieces of 8 values, half the f32 bytes)
+//      and widened once, as each value is read from shared memory into the
+//      accumulators. Its block takes 109,568 B of shared memory with f32
+//      xp and 76,800 B with bf16 (three such blocks and their 1 KiB each
+//      fill an SM's 233,472 B); registers may hold either to 2 blocks an
+//      SM (the forward keeps 64 A-fragment registers a thread).
 // 2. cluster (nsp_lstm_fwd_cluster, nsp_lstm_bwd_cluster, and
 //    nsp_lstm_dw), H=256, the haplotype model, whose w_hh (512 KiB a
 //    direction) fits no SM: a thread-block cluster of 4 CTAs per
@@ -416,6 +424,7 @@ constexpr int kTrainBN = 32;      // batch rows a block: two halves of 16
 constexpr int kSmemHidden = 64;   // the H the smem kernels are built for
 constexpr int kWPad = 8;          // bf16 pad of a w_hh row (ldmatrix)
 constexpr int kXpPad = 4;         // f32 pad of an xp row (accumulator loads)
+constexpr int kXpRowPad = 16;     // bytes of pad of a shared xp row, any dtype
 constexpr int kHPad = 8;          // f32 pad of an h_{t-1} row (8-byte loads)
 constexpr int kCPad = 4;          // f32 pad of a c_{t-1} or g row
 constexpr int kDgPad = 8;         // bf16 pad of a dgates row (ldmatrix)
@@ -567,44 +576,50 @@ __device__ __forceinline__ void copy_w(__nv_bfloat16* s_w,
   }
 }
 
-// rows [n0, n0 + kTrainBN) of src [n, L, 2, width] f32 at (t, dir) into
-// shared rows of ld floats; rows past n (or every row, valid false) zero
-template <int kWidth>
-__device__ __forceinline__ void fetch_rows(float* dst, int ld,
-                                           const float* src, int n, int n0,
-                                           int seq_len, int t, int dir,
-                                           bool valid, int tid, int threads) {
-  constexpr int kPieces = kWidth / 4;
+// rows [n0, n0 + kTrainBN) of src [n, L, 2, width] (f32, or bf16 xp) at
+// (t, dir) into shared rows of ld values, 16-byte pieces; rows past n (or
+// every row, valid false) zero
+template <int kWidth, typename T = float>
+__device__ __forceinline__ void fetch_rows(T* dst, int ld, const T* src,
+                                           int n, int n0, int seq_len, int t,
+                                           int dir, bool valid, int tid,
+                                           int threads) {
+  constexpr int kPer = 16 / (int)sizeof(T);  // values a piece
+  constexpr int kPieces = kWidth / kPer;
   for (int i = tid; i < kTrainBN * kPieces; i += threads) {
     const int r = i / kPieces, q = i - r * kPieces;
     const int row = n0 + r;
     const bool ok = valid && row < n;
-    cp_async16(dst + r * ld + q * 4,
+    cp_async16(dst + r * ld + q * kPer,
                src + (((size_t)(ok ? row : 0) * seq_len + t) * 2 + dir) *
-                         kWidth + q * 4,
+                         kWidth + q * kPer,
                ok);
   }
 }
 
-// Forward. xp [n, L, 2, 4H] f32; w_hh [2, H, 4H] bf16 (x @ w layout, as
-// the model holds it); hs, cs [n, L, 2, H] f32. grid (ceil(n/32), 2);
-// block 2 x H/16 warps: warp w owns hidden units 16 (w % (H/16)).. with all
-// four gates, for batch rows 16 (w / (H/16)).. of the tile. Shared: w_hh
-// [H][4H + 8] bf16, xp [2][32][4H + 4] f32, bf16 h [2][32][H + 8].
-template <int kH>
+// Forward, training's (kTrain: hs and cs out, xp f32) and inference's (hs
+// only, xp f32 or bf16). xp [n, L, 2, 4H]; w_hh [2, H, 4H] bf16 (x @ w
+// layout, as the model holds it); hs, cs [n, L, 2, H] f32. grid
+// (ceil(n/32), 2); block 2 x H/16 warps: warp w owns hidden units
+// 16 (w % (H/16)).. with all four gates, for batch rows 16 (w / (H/16))..
+// of the tile. Shared: w_hh [H][4H + 8] bf16, xp [2][32][4H + 16 bytes]
+// in its own dtype (f32 rows of 4H + 4, bf16 rows of 4H + 8), bf16 h
+// [2][32][H + 8]. A bf16 xp is staged as it is, half the bytes of f32,
+// and each value widened once, as it is read into the accumulators.
+template <int kH, bool kTrain, typename XpT>
 __global__ void __launch_bounds__(kH / 16 * 64)
-lstm_fwd_smem_kernel(const float* __restrict__ xp,
+lstm_fwd_smem_kernel(const XpT* __restrict__ xp,
                      const __nv_bfloat16* __restrict__ w_hh,
                      float* __restrict__ hs, float* __restrict__ cs, int n,
                      int seq_len) {
   constexpr int kUG = kH / 16;  // unit groups, and k-tiles of the product
   constexpr int kThreads = kUG * 64;
   constexpr int ldw = 4 * kH + kWPad;
-  constexpr int ldx = 4 * kH + kXpPad;
+  constexpr int ldx = 4 * kH + kXpRowPad / (int)sizeof(XpT);
   constexpr int ldh = kH + kRowPad;
   extern __shared__ uint4 smem_u4[];
   __nv_bfloat16* s_w = reinterpret_cast<__nv_bfloat16*>(smem_u4);
-  float* s_x = reinterpret_cast<float*>(s_w + kH * ldw);
+  XpT* s_x = reinterpret_cast<XpT*>(s_w + kH * ldw);
   __nv_bfloat16* s_h =
       reinterpret_cast<__nv_bfloat16*>(s_x + 2 * kTrainBN * ldx);
 
@@ -656,7 +671,7 @@ lstm_fwd_smem_kernel(const float* __restrict__ xp,
                          kThreads);
       cp_async_commit();
     }
-    const float* xs = s_x + (s & 1) * kTrainBN * ldx;
+    const XpT* xs = s_x + (s & 1) * kTrainBN * ldx;
     float acc[4][2][4];
 #pragma unroll
     for (int g = 0; g < 4; ++g)
@@ -664,8 +679,8 @@ lstm_fwd_smem_kernel(const float* __restrict__ xp,
       for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          acc[g][nt][e] = xs[(rw + nt * 8 + 2 * tig + (e & 1)) * ldx +
-                             g * kH + ug * 16 + grp + (e < 2 ? 0 : 8)];
+          acc[g][nt][e] = widen(xs[(rw + nt * 8 + 2 * tig + (e & 1)) * ldx +
+                                   g * kH + ug * 16 + grp + (e < 2 ? 0 : 8)]);
     const __nv_bfloat16* hb = s_h + (s & 1) * kTrainBN * ldh + h_row;
 #pragma unroll
     for (int kt = 0; kt < kUG; ++kt) {
@@ -702,7 +717,7 @@ lstm_fwd_smem_kernel(const float* __restrict__ xp,
           const size_t o =
               (((size_t)(n0 + r) * seq_len + t) * 2 + dir) * kH + j;
           hs[o] = h[e];
-          cs[o] = c[nt][e];
+          if constexpr (kTrain) cs[o] = c[nt][e];
         }
       }
     }
@@ -954,9 +969,12 @@ lstm_bwd_smem_kernel(const float* __restrict__ xp,
   }
 }
 
-int fwd_smem_bytes(int hidden) {
+// the smem forward's block with xp of xp_bytes (4 f32, 2 bf16; training's
+// is the f32 one): w_hh, two xp buffers, two bf16 h buffers
+// (lstm_fwd_smem_kernel)
+int infer_smem_bytes(int hidden, int xp_bytes) {
   return hidden * (4 * hidden + kWPad) * 2 +
-         2 * kTrainBN * (4 * hidden + kXpPad) * 4 +
+         2 * kTrainBN * (4 * hidden * xp_bytes + kXpRowPad) +
          2 * kTrainBN * (hidden + kRowPad) * 2;
 }
 
@@ -973,18 +991,35 @@ bool smem_plan_ok(int n, int seq_len, int hidden, int bn, int grid_x) {
          grid_x == (n + kTrainBN - 1) / kTrainBN;
 }
 
-template <int kH>
+template <int kH, bool kTrain, typename XpT>
 int launch_fwd_smem(const void* xp, const void* w, void* hs, void* cs, int n,
                     int seq_len, int smem, int grid_x, cudaStream_t stream) {
-  if (smem != fwd_smem_bytes(kH) || smem > kSmemMax) return kPlanError;
-  auto kernel = lstm_fwd_smem_kernel<kH>;
+  if (smem != infer_smem_bytes(kH, sizeof(XpT)) || smem > kSmemMax)
+    return kPlanError;
+  auto kernel = lstm_fwd_smem_kernel<kH, kTrain, XpT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3(grid_x, 2), kH / 16 * 64, smem, stream>>>(
-      static_cast<const float*>(xp), static_cast<const __nv_bfloat16*>(w),
+      static_cast<const XpT*>(xp), static_cast<const __nv_bfloat16*>(w),
       static_cast<float*>(hs), static_cast<float*>(cs), n, seq_len);
   return (int)cudaGetLastError();
+}
+
+// blocks of the smem inference forward an SM holds at once at `smem`
+// bytes (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or a negated
+// cudaError
+template <typename XpT>
+int infer_smem_occupancy(int smem) {
+  auto kernel = lstm_fwd_smem_kernel<kSmemHidden, false, XpT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return -(int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, kernel, kSmemHidden / 16 * 64, smem);
+  if (err != cudaSuccess) return -(int)err;
+  return blocks;
 }
 
 template <int kH, bool kDw>
@@ -1999,9 +2034,36 @@ extern "C" int nsp_lstm_fwd_smem(const void* xp, const void* w_hh, void* hs,
                                  void* cs, int n, int seq_len, int hidden,
                                  int bn, int smem, int grid_x, void* stream) {
   if (!smem_plan_ok(n, seq_len, hidden, bn, grid_x)) return kPlanError;
-  return launch_fwd_smem<kSmemHidden>(xp, w_hh, hs, cs, n, seq_len, smem,
-                                      grid_x,
-                                      static_cast<cudaStream_t>(stream));
+  return launch_fwd_smem<kSmemHidden, true, float>(
+      xp, w_hh, hs, cs, n, seq_len, smem, grid_x,
+      static_cast<cudaStream_t>(stream));
+}
+
+// Inference on the smem path: the forward without the c_t stream, xp f32
+// (xp_bf16 = 0) or bf16 staged in its own dtype; w_hh as the model holds
+// it, nothing packed; the plan (ops/lstm_train.plan_infer) checked as the
+// training forward's, its shared memory infer_smem_bytes of the xp dtype.
+extern "C" int nsp_lstm_infer_smem(const void* xp, int xp_bf16,
+                                   const void* w_hh, void* hs, int n,
+                                   int seq_len, int hidden, int bn, int smem,
+                                   int grid_x, void* stream) {
+  if (!smem_plan_ok(n, seq_len, hidden, bn, grid_x)) return kPlanError;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (xp_bf16)
+    return launch_fwd_smem<kSmemHidden, false, __nv_bfloat16>(
+        xp, w_hh, hs, nullptr, n, seq_len, smem, grid_x, st);
+  return launch_fwd_smem<kSmemHidden, false, float>(
+      xp, w_hh, hs, nullptr, n, seq_len, smem, grid_x, st);
+}
+
+// blocks of the smem inference forward (f32 or bf16 xp) an SM holds at
+// once, or < 0 (a negated cudaError, or kPlanError for bytes that are not
+// the kernel's)
+extern "C" int nsp_lstm_infer_smem_occupancy(int xp_bf16, int smem) {
+  if (smem != infer_smem_bytes(kSmemHidden, xp_bf16 ? 2 : 4))
+    return kPlanError;
+  return xp_bf16 ? infer_smem_occupancy<__nv_bfloat16>(smem)
+                 : infer_smem_occupancy<float>(smem);
 }
 
 // part: scratch [grid_x, 2, H, 4H] f32 and dw [2, H, 4H] bf16, both unused

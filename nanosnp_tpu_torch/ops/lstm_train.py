@@ -41,9 +41,11 @@ of `bilstm_encoder_pallas`. Four wrappers around the CUDA kernels of
   packed   every other H: w_hh packed in fragment order on every call and
            re-read from L2 every step, dW by `lstm_dw_reduce`.
 
-`plan_infer(n, L, H)` picks the inference kernel's: `cluster` at H=256 (the
-training forward's kernel without the cell-state stream, nothing packed),
-`packed` at every other H.
+`plan_infer(n, L, H, xp_bytes)` picks the inference kernel's: `smem` at
+H=64 (the smem training forward's kernel without the cell-state stream,
+xp staged in its own dtype, nothing packed), `cluster` at H=256 (the
+cluster training forward's kernel without the cell-state stream, nothing
+packed), `packed` at every other H.
 
 `lstm_recurrence(xp, w_hh)` takes the inference kernel when no gradient is
 wanted and the autograd op over the training kernels otherwise.
@@ -111,7 +113,8 @@ def smem_bytes(hidden: int, bn: int = TRAIN_BN) -> Tuple[int, int]:
     + 8] bf16 in both; the forward's xp [2][bn][4H + 4] f32 and bf16 h
     [2][bn][H + 8]; the sweep's two buffers of xp, h_{t-1} [bn][H + 8],
     c_{t-1} and g [bn][H + 4], all f32, and dgates as bf16 hi and lo
-    [2][bn][4H + 8] (csrc/lstm_train.cu fwd_smem_bytes, bwd_smem_bytes)."""
+    [2][bn][4H + 8] (csrc/lstm_train.cu infer_smem_bytes with f32 xp,
+    bwd_smem_bytes)."""
     w = hidden * (4 * hidden + 8) * 2
     return (w + 2 * bn * (4 * hidden + 4) * 4 + 2 * bn * (hidden + 8) * 2,
             w + 2 * bn * ((4 * hidden + 4) + (hidden + 8)
@@ -170,8 +173,8 @@ def plan_train(n: int, seq_len: int, hidden: int) -> TrainPlan:
 
 
 class InferPlan(NamedTuple):
-    """How the inference kernel runs one call: `path` "cluster" or
-    "packed", `bn` batch rows a block (a cluster's on the cluster path),
+    """How the inference kernel runs one call: `path` "smem", "cluster"
+    or "packed", `bn` batch rows a block (a cluster's on the cluster path),
     `grid` (blocks along N, directions), `smem` bytes of shared memory a
     block, `cluster` CTAs a cluster (1 on the packed path)."""
     path: str
@@ -181,15 +184,33 @@ class InferPlan(NamedTuple):
     cluster: int = 1
 
 
-def plan_infer(n: int, seq_len: int, hidden: int) -> InferPlan:
-    """The inference kernel's plan: at H=256 the cluster path, the
-    training forward's kernel and plan without the cell-state stream (N =
-    8192 is 256 clusters, nine rounds of the 30 resident); at every other
-    H the packed kernel (w_hh packed on every call, 32 rows a block).
-    Raises ValueError for a shape no kernel takes."""
+def infer_smem_bytes(hidden: int, xp_bytes: int) -> int:
+    """Shared memory of the smem forward's block with xp of `xp_bytes` (4
+    f32, 2 bf16): w_hh [H][4H + 8] bf16, xp [2][32][4H] in its dtype with
+    16 bytes of pad a row, bf16 h [2][32][H + 8] (csrc/lstm_train.cu
+    infer_smem_bytes; the training forward's is the f32 one)."""
+    return (hidden * (4 * hidden + 8) * 2
+            + 2 * TRAIN_BN * (4 * hidden * xp_bytes + 16)
+            + 2 * TRAIN_BN * (hidden + 8) * 2)
+
+
+def plan_infer(n: int, seq_len: int, hidden: int,
+               xp_bytes: int = 4) -> InferPlan:
+    """The inference kernel's plan for xp of `xp_bytes` (4 f32, 2 bf16):
+    at H=64 the smem path, the training forward's kernel and plan without
+    the cell-state stream, xp staged in its own dtype (N = 8192 is 512
+    blocks of 32 rows); at H=256 the cluster path, likewise (N = 8192 is
+    256 clusters, nine rounds of the 30 resident); at every other H the
+    packed kernel (w_hh packed on every call, 32 rows a block). Raises
+    ValueError for a shape no kernel takes."""
     if n < 1 or seq_len < 1 or hidden < 16 or hidden % 16 or hidden > 256:
         raise ValueError(f"no inference kernel plan for N={n}, L={seq_len}, "
                          f"H={hidden}: H must be a multiple of 16 up to 256")
+    if xp_bytes not in (2, 4):
+        raise ValueError(f"xp is f32 or bf16 (4 or 2 bytes), got {xp_bytes}")
+    if hidden == SMEM_HIDDEN:
+        return InferPlan("smem", TRAIN_BN, (-(-n // TRAIN_BN), 2),
+                         infer_smem_bytes(hidden, xp_bytes))
     if hidden == CLUSTER_HIDDEN:
         csize, bn = CLUSTER
         return InferPlan("cluster", bn, (-(-n // bn) * csize, 2),
@@ -432,10 +453,15 @@ def lstm_recurrence_infer(xp, w_hh):
     hs = torch.empty(n, seq_len, 2, hidden, dtype=torch.float32,
                      device=xp.device)
     if n and seq_len:
-        plan = plan_infer(n, seq_len, hidden)
+        plan = plan_infer(n, seq_len, hidden, xp.element_size())
         lib = library("lstm_train")
         with torch.cuda.device(xp.device):
-            if plan.path == "cluster":
+            if plan.path == "smem":
+                err = lib.nsp_lstm_infer_smem(
+                    xp.data_ptr(), int(xp_bf16), w_hh.data_ptr(),
+                    hs.data_ptr(), n, seq_len, hidden, plan.bn, plan.smem,
+                    plan.grid[0], _stream(xp))
+            elif plan.path == "cluster":
                 err = lib.nsp_lstm_infer_cluster(
                     xp.data_ptr(), int(xp_bf16), w_hh.data_ptr(),
                     hs.data_ptr(), n, seq_len, hidden, plan.cluster, plan.bn,
@@ -534,6 +560,19 @@ def lstm_recurrence_bwd(xp, w_hh, hs, cs, g, with_dw: bool = True):
     if with_dw and plan.path != "smem":
         dw = lstm_dw_reduce(dxp, hs)
     return dxp, dw
+
+
+def infer_smem_occupancy(xp_bytes: int) -> int:
+    """Blocks of the smem inference forward (xp of `xp_bytes`) an SM holds
+    at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current
+    device)."""
+    from .build import library
+
+    got = library("lstm_train").nsp_lstm_infer_smem_occupancy(
+        int(xp_bytes == 2), infer_smem_bytes(SMEM_HIDDEN, xp_bytes))
+    if got < 0:
+        raise RuntimeError(f"occupancy query failed: {got}")
+    return got
 
 
 def cluster_occupancy(sweep: bool) -> int:

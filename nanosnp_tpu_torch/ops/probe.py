@@ -2,31 +2,33 @@
 
 `bilstm_probe` runs the pileup model's first layer (the shape of
 `bilstm_stream` in s2: L 33, D 18, H 64, bf16 out) in one of four modes,
-each with one resource of the per-step cost removed, so that timing them
+each with one part of the per-step cost removed, so that timing them
 against each other says where a step's time sits. It replaces the Pallas
 kernel `_variant_kernel` (scripts/kernel_probe.py:36, launched by
-`_run_variant` :117); its CUDA kernel is `csrc/bilstm_probe.cu`.
+`_run_variant` :117); its CUDA kernel is `csrc/bilstm_probe.cu`, which
+builds the device code `bilstm_stream` runs (`csrc/bilstm_layer.cuh`
+`fused_layer`) with a knock-out parameter, on `bilstm_stream`'s plan
+(`probe_plan`: `plan_layer(..., center=False)`, the fused path only).
 
-  full    the layer `bilstm_stream(..., out_dtype=bf16)` computes, in the
-          older design of its kernel (weights re-read from L2 every step,
-          IEEE gate math), which this probe keeps: its plain version is
-          `bilstm_stream_plain`, and on the card it agrees with the
-          redesigned `bilstm_stream` within the bf16 tolerance, not bit
-          for bit;
-  nogate  the gate transcendentals replaced by a linear combine,
-          c = 0.5 c + 0.25 (g_i + g_f), h = 0.5 c + 0.125 (g_g + g_o):
-          wrong math, same products and memory traffic;
-  nomm    no W_hh . h product (gates = W_ih x_t + b); h is still carried
-          and written;
-  nodma   the per-step load of x_t hoisted out of the time loop: every
-          step uses the slab of the direction's first step (x[0] for
-          direction 0, x[L-1] for direction 1). The TPU probe knocked out
-          its DMA; on the card the global -> shared staging of x_t stands
-          in for it.
+  full    the layer itself: the same code and plan as
+          `bilstm_stream(..., out_dtype=bf16)`, the same bits on the card;
+          its plain version is `bilstm_stream_plain`;
+  nogate  the SFU gate math (`sigmoid4`, `tanh2` in `cell_update`)
+          replaced by a linear combine, c = 0.5 c + 0.25 (g_i + g_f),
+          h = 0.5 c + 0.125 (g_g + g_o): wrong math, same products and
+          memory traffic;
+  nomm    no W_hh . h product (gates = W_ih x_t + b); h is still rounded,
+          written to the shared h tile and output;
+  nodma   x staged once: every step uses the slab of the direction's
+          first step (x[0] for direction 0, x[L-1] for direction 1), and
+          no step starts or waits for a copy of x. The TPU probe knocked
+          out its DMA; on the card the per-step cp.async of x_t stands in
+          for it.
 
 Contract as in `ops/bilstm.py`: x [N, L, D] bf16, w_ih [2, D, 4H] bf16,
-w_hh [2, H, 4H] bf16, b [2, 4H] f32; output [N, L, 2H] bf16. A CPU tensor
-takes `probe_plain`; a CUDA tensor launches the kernel or raises.
+w_hh [2, H, 4H] bf16, b [2, 4H] f32; output [N, L, 2H] bf16. A shape off
+the fused path raises ValueError (the knock-outs exist only there). A CPU
+tensor takes `probe_plain`; a CUDA tensor launches the kernel or raises.
 
 Entry point, the counterpart of `python scripts/kernel_probe.py`:
 
@@ -45,7 +47,9 @@ from typing import Dict, Optional
 
 import torch
 
-from .bilstm import (LAUNCHES, _check, bilstm_stream_plain, pack_weights)
+from .bilstm import (LAUNCHES, LayerPlan, _check, _contiguous, _ERRORS,
+                     _kernel_x, _packed, bilstm_stream_plain, pack_weights,
+                     plan_layer)
 
 MODES = ("full", "nogate", "nomm", "nodma")
 
@@ -84,6 +88,17 @@ def probe_plain(x, w_ih, w_hh, b, mode: str) -> torch.Tensor:
     return out.reshape(n, seq_len, 2 * hidden)
 
 
+def probe_plan(n: int, seq_len: int, d_in: int, hidden: int) -> LayerPlan:
+    """`bilstm_stream`'s plan at this shape, `plan_layer(..., center=False)`;
+    ValueError where it is not the fused path."""
+    plan = plan_layer(n, seq_len, d_in, hidden, False)
+    if plan.path != "fused":
+        raise ValueError(f"the probe takes the fused layer path only; N={n},"
+                         f" L={seq_len}, D={d_in}, H={hidden} takes the "
+                         f"{plan.path} path")
+    return plan
+
+
 def bilstm_probe(x, w_ih, w_hh, b, mode: str,
                  packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x [N, L, D] -> [N, L, 2H] bf16 in `mode`. `packed` is
@@ -92,32 +107,29 @@ def bilstm_probe(x, w_ih, w_hh, b, mode: str,
     _check(x, w_ih, w_hh, b)
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    n, seq_len, d_in = x.shape
+    hidden = w_hh.shape[1]
+    plan = probe_plan(max(n, 1), seq_len, d_in, hidden)
     if x.device.type == "cpu":
         return probe_plain(x, w_ih, w_hh, b, mode)
     from .build import library
 
-    for t in (x, w_ih, w_hh, b):
-        if not t.is_contiguous():
-            raise ValueError("kernel inputs must be contiguous")
-    n, seq_len, d_in = x.shape
-    hidden = w_hh.shape[1]
-    if hidden % 16 or hidden > 256:
-        raise ValueError(f"the CUDA kernel takes H a multiple of 16 up to "
-                         f"256, got {hidden}")
+    _contiguous(x, w_ih, w_hh, b)
     out = torch.empty(n, seq_len, 2 * hidden, dtype=torch.bfloat16,
                       device=x.device)
     if not n:
         return out
-    wpk = pack_weights(w_ih, w_hh) if packed is None else packed
+    wpk = _packed(w_ih, w_hh, packed)
+    xk = _kernel_x(x, plan.d_x)
     with torch.cuda.device(x.device):
         err = library("bilstm_probe").nsp_bilstm_probe(
-            x.data_ptr(), wpk.data_ptr(), b.data_ptr(), out.data_ptr(),
-            MODES.index(mode), n, seq_len, d_in, hidden,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            xk.data_ptr(), wpk.data_ptr(), b.data_ptr(), out.data_ptr(), n,
+            seq_len, plan.d_x, hidden, plan.bn, plan.smem, plan.grid[0],
+            MODES.index(mode), torch.cuda.current_stream(x.device).cuda_stream)
     if err:
-        raise RuntimeError(f"nsp_bilstm_probe ({mode}) launch failed: "
-                           f"cudaError {err} (N={n}, L={seq_len}, D={d_in}, "
-                           f"H={hidden})")
+        raise RuntimeError(f"nsp_bilstm_probe ({mode}) failed: "
+                           f"{_ERRORS.get(err, f'cudaError {err}')} (N={n}, "
+                           f"L={seq_len}, D={d_in}, H={hidden})")
     LAUNCHES["bilstm_probe"] += 1
     return out
 

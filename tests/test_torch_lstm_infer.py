@@ -6,10 +6,16 @@ CUDA kernels' cast sites. It is held against `bilstm_layer_pallas`
 (interpret mode, no differentiation: the primal `_kernel`, with f32 xp and,
 at the CatModel's width, bf16 xp too) and against
 `bilstm_encoder_pallas(fused=False)` (xp rounded to bf16 before the
-kernel). `plan_infer` takes the cluster forward at H=256 and the packed
-kernel elsewhere. The CUDA kernels are held against the same plain version
-on the card by chip_smoke.py.
+kernel). `plan_infer` takes the smem forward at H=64 (its shared memory
+as the C launcher reckons it, for f32 and bf16 xp), the cluster forward at
+H=256 and the packed kernel elsewhere; an emulation of the smem forward's
+arithmetic (its SFU gate formulas, bf16 h, f32 cell) stays within the
+card's tolerance of the plain version. The CUDA kernels are held against
+the same plain version on the card by chip_smoke.py.
 """
+import pathlib
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -17,13 +23,16 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from chip_smoke import TRAIN_TOL
 from nanosnp_tpu.ops.pallas_lstm import (bilstm_encoder_pallas,
                                          bilstm_layer_pallas)
 from nanosnp_tpu_torch.models.bilstm import BiLSTM, bilstm_encoder_unfused
 from nanosnp_tpu_torch.models.convert import params_from_jax
 from nanosnp_tpu_torch.ops import lstm_train as T
 from nanosnp_tpu_torch.ops.bilstm import (CLUSTER, LAUNCHES, SMEM_MAX,
-                                          reset_launch_counts)
+                                          SMEM_SM, reset_launch_counts)
+from nanosnp_tpu_torch.ops.build import CSRC
+from test_torch_bilstm_plan import _sigmoid4, _tanh2
 
 # bf16 cast sites on both sides (w_hh and h_{t-1} rounded to bf16, f32
 # accumulation, f32 cell): what remains is f32 summation order, which can
@@ -105,12 +114,56 @@ def test_plan_infer_takes_the_cluster_path_at_256(n):
         assert -(-clusters // T.CLUSTERS_RESIDENT) == 9
 
 
-@pytest.mark.parametrize("hidden", [16, 64, 128])
+@pytest.mark.parametrize("hidden", [16, 128])
 def test_plan_infer_takes_the_packed_path_off_256(hidden):
     plan = T.plan_infer(3001, 33, hidden)
     assert plan.path == "packed" and plan.cluster == 1
     assert plan.grid == (-(-3001 // 32), 2)
     assert plan.smem == 32 * (hidden + 8) * 2
+
+
+@pytest.mark.parametrize("xp_bytes", [4, 2])
+@pytest.mark.parametrize("n", [1, 65, 3001, 8192])
+def test_plan_infer_takes_the_smem_path_at_64(n, xp_bytes):
+    """The training forward's smem plan, without its cell-state stream:
+    32 rows a block, w_hh in shared memory, xp staged in its own dtype. With
+    f32 xp the block is the training forward's; with bf16 xp three blocks
+    fill an SM's shared memory to the byte."""
+    plan = T.plan_infer(n, 33, 64, xp_bytes)
+    assert plan.path == "smem" and plan.cluster == 1
+    assert plan.bn == T.TRAIN_BN == 32
+    assert plan.grid == (-(-n // 32), 2)
+    assert plan.smem == T.infer_smem_bytes(64, xp_bytes) <= SMEM_MAX
+    assert plan.smem == {4: 109_568, 2: 76_800}[xp_bytes]
+    if xp_bytes == 4:
+        assert plan.smem == T.plan_train(n, 33, 64).fwd_smem \
+            == T.smem_bytes(64)[0]
+    assert SMEM_SM // (plan.smem + 1024) == {4: 2, 2: 3}[xp_bytes]
+    if n == 8192:
+        assert plan.grid[0] * plan.grid[1] == 512
+
+
+def _c_function(name: str) -> str:
+    """The return expression of int `name`(...) in csrc/lstm_train.cu."""
+    src = (CSRC / "lstm_train.cu").read_text()
+    m = re.search(r"\nint " + name + r"\(int hidden, int xp_bytes\) \{\s*"
+                  r"return (.*?);\s*\}", src, re.S)
+    assert m, name
+    return m.group(1)
+
+
+@pytest.mark.parametrize("xp_bytes", [4, 2])
+def test_infer_smem_bytes_is_what_the_launcher_reckons(xp_bytes):
+    """csrc/lstm_train.cu infer_smem_bytes, evaluated with the source's own
+    constants, is the Python plan's: the launcher refuses any other."""
+    src = (CSRC / "lstm_train.cu").read_text()
+    consts = {k: int(v) for k, v in
+              re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    expr = _c_function("infer_smem_bytes")
+    assert set(re.findall(r"k\w+", expr)) <= set(consts)
+    got = eval(f"({expr})", {}, dict(consts, hidden=64, xp_bytes=xp_bytes))
+    assert got == T.infer_smem_bytes(64, xp_bytes) \
+        == T.plan_infer(8192, 33, 64, xp_bytes).smem
 
 
 @pytest.mark.parametrize("n,seq_len,hidden",
@@ -119,6 +172,46 @@ def test_plan_infer_takes_the_packed_path_off_256(hidden):
 def test_plan_infer_refuses_what_no_kernel_takes(n, seq_len, hidden):
     with pytest.raises(ValueError):
         T.plan_infer(n, seq_len, hidden)
+
+
+def _smem_forward(xp, w_hh):
+    """The smem forward's arithmetic in torch: xp widened to f32 as it is
+    read, gates = xp + w_hh^T . bf16(h_{t-1}) summed in f32, the SFU gate
+    formulas (sigmoid4 of i, f, o and 2g; tanh2 of c), f32 cell, bf16 h
+    carried -> hs [N, L, 2, H] f32."""
+    n, seq_len, _, four_h = xp.shape
+    hidden = four_h // 4
+    hs = torch.empty(n, seq_len, 2, hidden)
+    for d in (0, 1):
+        w = w_hh[d].float()
+        h = torch.zeros(n, hidden)
+        c = torch.zeros(n, hidden)
+        for s in range(seq_len):
+            t = s if d == 0 else seq_len - 1 - s
+            acc = xp[:, t, d].float() + h.bfloat16().float() @ w
+            i, f, g, o = acc.split(hidden, dim=1)
+            si, sf, so, s2g = _sigmoid4([i, f, o, 2.0 * g])
+            c = sf * c + si * (2.0 * s2g - 1.0)
+            h = _tanh2(c, c)[0] * so
+            hs[:, t, d] = h
+    return hs
+
+
+@pytest.mark.parametrize("xp_dtype", [torch.float32, torch.bfloat16])
+def test_smem_forward_arithmetic_is_within_the_card_tolerance(xp_dtype):
+    """At the pileup shape (L=33, H=64), N ragged against the block's 32
+    rows: the kernel's own formulas against the plain version (IEEE
+    sigmoid and tanh), within TRAIN_TOL of max(1, max|want|), the tolerance
+    chip_smoke.py holds the kernel to on the card."""
+    n, seq_len, hidden = 40, 33, 64
+    xp, w_hh = _inputs(64, n, seq_len, hidden)
+    xp_t = (torch.from_numpy(xp) * 3.0).to(xp_dtype)
+    w = torch.from_numpy(w_hh).bfloat16()
+    want = T.lstm_recurrence_infer_plain(xp_t, w)
+    got = _smem_forward(xp_t, w)
+    err = (got - want).abs().max().item()
+    assert err / max(1.0, want.abs().max().item()) <= TRAIN_TOL
+    assert err > 0      # the formulas are not the plain version's
 
 
 def _layers(rng, d_in, hidden, n_layers):

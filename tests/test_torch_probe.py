@@ -7,10 +7,16 @@ Tolerance 2e-2 absolute on the bf16 outputs: both sides round h to bf16
 every step and sum their products in another order, and a one-ulp flip of
 a bf16 h (4e-3 near 1) is carried on through 33 steps. `nogate` has no
 squashing function, so its values grow past 1 and its gap is held relative
-to the largest magnitude."""
+to the largest magnitude.
+
+The CUDA kernel is the layer code `bilstm_stream` runs with a knock-out
+parameter: its plan is `bilstm_stream`'s, its source keeps no layer loop
+of its own, and the production kernels call the layer code with the
+knock-out at its default."""
 import functools
 import importlib.util
 import os
+import re
 
 import numpy as np
 import pytest
@@ -21,7 +27,8 @@ from jax.experimental import pallas as pl
 
 from nanosnp_tpu_torch.ops import probe
 from nanosnp_tpu_torch.ops.bilstm import (LAUNCHES, bilstm_stream,
-                                          bilstm_stream_plain)
+                                          bilstm_stream_plain, plan_layer)
+from nanosnp_tpu_torch.ops.build import CSRC, SOURCES
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, L, D, D_PAD, H = 16, 33, 18, 32, 64
@@ -131,3 +138,62 @@ def test_shares_and_entry_point_on_the_cpu(capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             probe.main(["8", "1"])
+
+
+@pytest.mark.parametrize("n", [8192, 3001])
+def test_probe_plan_is_bilstm_streams(n):
+    """The probe runs on the plan `bilstm_stream` takes at the s2 layer-1
+    shape: the fused path, the same tile, grid and shared memory."""
+    plan = probe.probe_plan(n, L, D, H)
+    assert plan == plan_layer(n, L, D, H, center=False)
+    assert plan.path == "fused" and plan.grid == (-(-n // plan.bn), 2)
+
+
+@pytest.mark.parametrize("d_in,hidden", [(18, 256), (2000, 64)])
+def test_probe_refuses_shapes_off_the_fused_path(d_in, hidden):
+    """The knock-outs exist only in the fused layer: a shape whose plan is
+    the cluster path raises, on the CPU as on the card."""
+    assert plan_layer(8, L, d_in, hidden, center=False).path == "cluster"
+    with pytest.raises(ValueError, match="fused"):
+        probe.probe_plan(8, L, d_in, hidden)
+    rng = np.random.default_rng(hidden)
+    x = torch.from_numpy(rng.standard_normal((2, L, d_in)).astype(
+        np.float32)).bfloat16()
+    w_ih = torch.zeros(2, d_in, 4 * hidden, dtype=torch.bfloat16)
+    w_hh = torch.zeros(2, hidden, 4 * hidden, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="fused"):
+        probe.bilstm_probe(x, w_ih, w_hh, torch.zeros(2, 4 * hidden), "full")
+
+
+def _strip_comments(src):
+    return re.sub(r"//[^\n]*", "", src)
+
+
+def test_probe_source_keeps_no_layer_code_of_its_own():
+    """bilstm_probe.cu includes the shared layer code and passes the mode
+    through to `fused_layer`; it has no step loop, product or gate math."""
+    src = _strip_comments((CSRC / "bilstm_probe.cu").read_text())
+    assert '#include "bilstm_layer.cuh"' in src
+    assert re.search(r"fused_layer<false, true, __nv_bfloat16, 4, kKnock>",
+                     src)
+    for own in (r"for \(int s = ", "mma_bf16", "mma.sync", "sigmoid",
+                "tanh", "ex2", "__syncthreads", "cp_async16"):
+        assert not re.search(own, src), own
+    # the C entry point takes the layer's plan, as nsp_bilstm_stream does
+    assert len(SOURCES["bilstm_probe"]["nsp_bilstm_probe"]) == 13
+    assert "fused_plan_ok(" in src
+
+
+@pytest.mark.parametrize("name", ["bilstm.cu", "bilstm_fused.cu"])
+def test_production_kernels_keep_the_default_knock_out(name):
+    """Every call of the shared layer code in the production sources names
+    no knock-out: `fused_layer` with its four template arguments and
+    `cell_update` with its three."""
+    src = _strip_comments((CSRC / name).read_text())
+    calls = re.findall(r"(fused_layer|cell_update)<([^>]*)>\(", src)
+    assert calls, name
+    for fn, args in calls:
+        assert "KnockOut" not in args and "Knock" not in args
+        assert len(args.split(",")) == {"fused_layer": 4,
+                                        "cell_update": 3}[fn], (fn, args)
+    assert "KnockOut" not in src
