@@ -74,10 +74,18 @@
            2 epochs each with validation. Launch counts are zeroed before
            each and read after (train-pileup must launch no
            `lstm_dw_reduce`); losses must be finite, checkpoints written,
-           and the trained pileup checkpoint must load and predict. Then
-           one full-width pileup step's gradients on the card are held
-           against the plain versions on the CPU, and steady-state steps of
-           both trainers are timed and profiled (torch.profiler).
+           and the trained pileup checkpoint must load and predict.
+           `evaluate-haplotype` (CLI) on the training world's shards with
+           the v6b weights and with the trained last.ckpt (`bilstm_inproj`
+           and `bilstm_cluster` launched), its first shard's argmax
+           decisions on the card against the CPU's (at least 99% agree).
+           One epoch each of train-pileup with `optim.type: ranger` and
+           train-haplotype with `ranger21` (the training kernels launched,
+           losses finite). Then one full-width pileup step's gradients on
+           the card are held against the plain versions on the CPU, and
+           steady-state steps of both trainers, with Lookahead-Adam and
+           with their Ranger flavor, are timed and profiled
+           (torch.profiler).
   phase 4  `call` end to end from a BAM at full model width. Writes a
            diploid world (a training and a calling contig, 30x reads in one
            untagged BAM, truth VCF, BED); then, all through the CLI on the
@@ -90,8 +98,13 @@
            `bilstm_inproj` and `bilstm_cluster` be launched, merge.vcf
            have rows, and a second `call` on the same output run no stage.
            Prints per-stage seconds and rates, het-SNP recall and precision
-           against the world's truth, and the card's busy share of one more
-           `call` under torch.profiler.
+           against the world's truth (`eval.f1.evaluate_calls`), and
+           `compare-failed` on the hets the call missed (it must keep each
+           one inside the BED). `evaluate-pileup` with the fitted model on the training
+           contig's arrays, every row and `--for-evaluate` (`bilstm_stream`
+           and `bilstm_center` launched; the variant rows' argmax decisions
+           on the card against the CPU's, at least 99% agree). Last, the
+           card's busy share of one more `call` under torch.profiler.
 
 `python3 chip_smoke.py --train-times TREE` times the training kernels
 alone and through their wrappers and profiles both trainers' steps, with
@@ -114,6 +127,7 @@ import shutil
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -151,7 +165,9 @@ ROUTE_ROWS_OFF = 1e-3
 LEGACY_GROUPS = 16_384  # legacy groups a tag: two predict batches of 8192
 LEGACY_TRAIN_GROUPS = 1024   # of them, the part legacy-train sees
 GRAD_N = 256            # batch of the card-vs-CPU gradient check
-PROFILE_STEPS = 5       # training steps timed, and profiled, per model
+PROFILE_STEPS = 5       # training steps profiled, per model and optimizer
+TIME_STEPS = 20         # training steps timed on the host clock, likewise
+AGREE_MIN = 0.99        # evaluate-*: share of argmax decisions, card vs CPU
 # gradients of one step, card vs CPU, over the largest entry of each leaf:
 # both sides round h_{t-1}, dgates and dW to bf16, so a reordered f32 sum
 # can flip a rounding (2^-8 relative) and carry it through the layers
@@ -744,8 +760,10 @@ def train_kernel_times(dev):
         out["kernels"].append(row)
         log("[train-times] " + json.dumps(row))
     arrays = _pileup_train_arrays(np.random.default_rng(SEED + 3), 2000)
+    # Lookahead-Adam only: a parent tree may have no other optimizer
     out["profile"] = profile_train_steps(dev, arrays,
-                                         np.random.default_rng(SEED + 4))
+                                         np.random.default_rng(SEED + 4),
+                                         flavors=False)
     return out
 
 
@@ -1763,6 +1781,62 @@ def _train_records(run_dir, epochs=2):
     return recs
 
 
+def _evaluate(name, argv, report, kernels):
+    """An evaluate-* command through the CLI on the card: launch counts,
+    wall seconds and sites/s, its report. Each kernel in `kernels` must
+    have been launched."""
+    import torch
+
+    from nanosnp_tpu_torch.ops import bilstm as K
+    from nanosnp_tpu_torch.runtime import cli
+
+    K.reset_launch_counts()
+    t = time.monotonic()
+    if cli.main(argv) != 0:
+        raise AssertionError(f"{name} failed")
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    dt = time.monotonic() - t
+    counts = dict(K.LAUNCHES)
+    with open(os.path.join(argv[argv.index("-o") + 1], report)) as f:
+        rep = json.load(f)
+    row = dict(seconds=dt, sites=rep["n"], sites_per_s=rep["n"] / dt,
+               report=rep)
+    log(f"[{name}] {dt:.3f} s, launches {counts}")
+    log(f"[{name}] " + json.dumps(row))
+    for k in kernels:
+        if counts[k] <= 0:
+            raise AssertionError(f"{name}: {k} was never launched")
+    if not rep["n"] > 0:
+        raise AssertionError(f"{name}: scored no site")
+    return row, counts
+
+
+def check_agreement(label, got, want):
+    """The (gt, zy) argmax decisions of an evaluate-* command's batches on
+    the card against the same batches on the CPU: the labels must be the
+    same, and at least AGREE_MIN of the decisions."""
+    import numpy as np
+
+    out = {}
+    for i, head in ((0, "gt"), (1, "zy")):
+        g = np.concatenate([b[i] for b in got])
+        w = np.concatenate([b[i] for b in want])
+        if g.shape != w.shape or not np.isfinite(g).all():
+            raise AssertionError(f"{label} {head}: bad output {g.shape}")
+        out[head] = float((g.argmax(1) == w.argmax(1)).mean())
+    for i in (2, 3):
+        if not np.array_equal(np.concatenate([b[i] for b in got]),
+                              np.concatenate([b[i] for b in want])):
+            raise AssertionError(f"{label}: the labels differ")
+    out["sites"] = int(sum(len(b[0]) for b in got))
+    log(f"[check] {label}: card vs CPU argmax agreement gt {out['gt']:.5f}, "
+        f"zy {out['zy']:.5f} over {out['sites']} sites (min {AGREE_MIN})")
+    if min(out["gt"], out["zy"]) < AGREE_MIN:
+        raise AssertionError(f"{label}: card disagrees with the CPU")
+    return out
+
+
 def phase_train(dev):
     """Phase 3: train-pileup and train-haplotype through the CLI at full
     model width on the card, then one full-width pileup training step's
@@ -1771,13 +1845,17 @@ def phase_train(dev):
     import numpy as np
     import torch
 
-    from nanosnp_tpu_torch.config import PileupModelConfig, TrainConfig
+    from nanosnp_tpu_torch.config import (PileupModelConfig, PipelineConfig,
+                                          TrainConfig)
+    from nanosnp_tpu_torch.io.bins import list_shards
+    from nanosnp_tpu_torch.io.fasta import FastaReference
     from nanosnp_tpu_torch.models.convert import flatten_tree
     from nanosnp_tpu_torch.models.pileup_model import (PileupModel,
                                                        init_pileup_params,
                                                        pileup_predict)
     from nanosnp_tpu_torch.ops import bilstm as K
     from nanosnp_tpu_torch.runtime import cli
+    from nanosnp_tpu_torch.runtime import evaluate as E
     from nanosnp_tpu_torch.train import data as D
     from nanosnp_tpu_torch.train.losses import label_smoothing_loss
     from nanosnp_tpu_torch.train.train_pileup import load_checkpoint
@@ -1831,6 +1909,70 @@ def phase_train(dev):
                 name == "train-haplotype"):
             raise AssertionError(f"{name}: lstm_dw_reduce launched "
                                  f"{launches[name]['lstm_dw_reduce']} times")
+
+    # evaluate-haplotype on the training world's shards, with the shipped
+    # v6b weights and with the checkpoint just trained
+    ev_args = ["evaluate-haplotype", "--shards", hap_shards, "--ref",
+               os.path.join(WORK, "ref.fa"), "--truth-vcf",
+               os.path.join(WORK, "truth.vcf"), "--bed",
+               os.path.join(WORK, "conf.bed")]
+    for name, model in (("evaluate-haplotype v6b", V6B),
+                        ("evaluate-haplotype trained", os.path.join(
+                            out, "haplotype_train", "last.ckpt"))):
+        rows[name], launches[name] = _evaluate(
+            name, ev_args + ["--model", model, "-o", os.path.join(
+                WORK, name.replace(" ", "_"))], "evaluate_haplotype.json",
+            ("bilstm_inproj", "bilstm_cluster"))
+    # card against CPU, the first shard: the command's own batches
+    ref = FastaReference(os.path.join(WORK, "ref.fa"))
+    truth = E.truth_arrays(ref, os.path.join(WORK, "truth.vcf"),
+                           os.path.join(WORK, "conf.bed"))
+    first = list_shards(hap_shards)[:1]
+    rows["evaluate-haplotype v6b"]["card_vs_cpu"] = check_agreement(
+        "evaluate-haplotype v6b, first shard", *[
+            list(E.haplotype_scores(PipelineConfig(), V6B, first, ref, truth,
+                                    512, d))
+            for d in (dev, torch.device("cpu"))])
+
+    # the reference's own optimizers, one epoch each: Ranger for the
+    # pileup model, Ranger21 for the haplotype model
+    for name, argv, batch, opt in (
+            ("train-pileup ranger", ["train-pileup", "--data", data_dir,
+                                     "--batch-size", "2000"], 2000, "ranger"),
+            ("train-haplotype ranger21", [
+                "train-haplotype", "--shards", hap_shards, "--ref",
+                os.path.join(WORK, "ref.fa"), "--truth-vcf",
+                os.path.join(WORK, "truth.vcf"), "--bed",
+                os.path.join(WORK, "conf.bed"), "--batch-size", "512"], 512,
+             "ranger21")):
+        yaml = os.path.join(WORK, f"{opt}.yaml")
+        with open(yaml, "w") as f:
+            f.write(f"train:\n  optim:\n    type: {opt}\n")
+        run_out = os.path.join(WORK, opt)
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        cli.main(argv + ["--config", yaml, "--epochs", "1", "--val-fraction",
+                         "0.1", "-o", run_out])
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t
+        launches[name] = dict(K.LAUNCHES)
+        base = name.split()[0]
+        recs = _train_records(os.path.join(
+            run_out, base.replace("train-", "") + "_train"), epochs=1)
+        steps = recs[-1]["step"]
+        rows[name] = dict(optimizer=opt, epochs=1, steps=steps, batch=batch,
+                          seconds=dt, steps_per_s=steps / dt,
+                          lookahead_adam_steps_per_s=rows[base][
+                              "steps_per_s"],
+                          final_train_loss=recs[-2]["loss"],
+                          final_val_loss=recs[-1]["loss"])
+        log(f"[{name}] {dt:.3f} s, {steps} steps, launches {launches[name]}")
+        log(f"[{name}] " + json.dumps(rows[name]))
+        for k in ("lstm_recurrence_train", "lstm_recurrence_bwd") + (
+                ("lstm_dw_reduce",) if opt == "ranger21" else ()):
+            if launches[name][k] <= 0:
+                raise AssertionError(f"{name}: {k} was never launched")
 
     # the trained pileup checkpoint loads into the port's model and predicts
     params, _ = load_checkpoint(os.path.join(out, "pileup_train",
@@ -2136,9 +2278,13 @@ def phase_call(dev):
     import numpy as np
     import torch
 
+    from diploid import truth_vcf_lines
+    from nanosnp_tpu_torch.config import PipelineConfig
+    from nanosnp_tpu_torch.eval import evaluate_calls
     from nanosnp_tpu_torch.models.convert import pileup_checkpoint_from_params
     from nanosnp_tpu_torch.ops import bilstm as K
     from nanosnp_tpu_torch.runtime import cli
+    from nanosnp_tpu_torch.runtime import evaluate as E
     from nanosnp_tpu_torch.train.train_pileup import load_checkpoint
 
     shutil.rmtree(WORK, ignore_errors=True)
@@ -2219,11 +2365,47 @@ def phase_call(dev):
                          or not math.isfinite(float(r[5])) for r in merged):
         raise AssertionError("merge.vcf rows malformed or empty")
 
-    # het SNPs against the world's truth (printed, not asserted)
-    hets = {t.pos1: t.alt for t in truth["chrC"] if not t.hom}
-    called = [(int(r[1]), r[4]) for r in merged
+    # het SNPs against the world's truth (printed, not asserted): the
+    # PASS het rows of merge.vcf scored by the port's eval.f1 on position
+    # and alleles
+    het_truth = [t for t in truth["chrC"] if not t.hom]
+    called = ["\t".join(r) + "\n" for r in merged
               if r[6] == "PASS" and r[9].split(":")[0] in ("0/1", "1/0")]
-    tp = sum(hets.get(pos) == alt for pos, alt in called)
+    f1 = evaluate_calls(called, truth_vcf_lines("chrC", het_truth),
+                        genotype_aware=False, snv_only=False)
+    if (f1.tp + f1.fp, f1.tp + f1.fn) != (len(called), len(het_truth)):
+        raise AssertionError(f"eval.f1 counted {f1.summary()} of "
+                             f"{len(called)} calls, {len(het_truth)} hets")
+    # compare-failed on the hets the call missed: it keeps those inside
+    # the confident BED (all of them are het in the truth)
+    alt = {t.pos1: t.alt for t in het_truth}
+    hit = {int(r[1]) for r in merged if r[6] == "PASS"
+           and r[9].split(":")[0] in ("0/1", "1/0")
+           and alt.get(int(r[1])) == r[4]}
+    missed = [t.pos1 for t in het_truth if t.pos1 not in hit]
+    if len(missed) != f1.fn:
+        raise AssertionError(f"{len(missed)} missed hets, eval.f1 {f1.fn}")
+    failed = os.path.join(WORK, "missed_hets.tsv")
+    with open(failed, "w") as f:
+        f.writelines(f"chrC\t{p}\tmissed\n" for p in missed)
+    kept_path = os.path.join(WORK, "het_fn.tsv")
+    dt = timed("compare-failed", [
+        "compare-failed", "--failed", failed, "--ref", paths["ref"],
+        "--truth-vcf", paths["truth"], "--bed", paths["bed"], "--out",
+        kept_path])
+    with open(kept_path) as f:
+        kept = f.read().splitlines()
+    rows["compare-failed"] = dict(seconds=dt, failed=len(missed),
+                                  het_fn=len(kept))
+    with open(paths["bed"]) as f:
+        lo, hi = next((int(b), int(e)) for c, b, e in (
+            line.split() for line in f) if c == "chrC")
+    in_bed = [p for p in missed if lo < p <= hi]
+    rows["compare-failed"]["in_bed"] = len(in_bed)
+    if kept != [f"chrC\t{p}\tmissed" for p in in_bed]:
+        raise AssertionError(f"compare-failed kept {len(kept)} of the "
+                             f"{len(in_bed)} missed hets inside the BED")
+    log("[compare-failed] " + json.dumps(rows["compare-failed"]))
     units = {"s1_pileup_features": ("candidates", m["s1_pileup_features"][
                  "candidates"]),
              "s2_pileup_predict": ("sites", m["s2_pileup_predict"]["sites"]),
@@ -2244,10 +2426,28 @@ def phase_call(dev):
         phased_sites=m["s3_phasing"]["phased_sites"],
         deferred=m["s5_haplotype_predict"].get("deferred"),
         rescued=m["s6_merge"].get("rescued"), merge_rows=len(merged),
-        truth_hets=len(hets), called_hets=len(called),
-        het_recall=tp / max(len(hets), 1),
-        het_precision=tp / max(len(called), 1))
+        truth_hets=len(het_truth), called_hets=len(called),
+        het_recall=f1.recall, het_precision=f1.precision)
     log("[call] " + json.dumps(rows["call"]))
+
+    # evaluate-pileup with the fitted model on its training contig's
+    # labeled arrays, every row and the variant rows (--for-evaluate);
+    # the variant rows' decisions on the card against the CPU's
+    fitted = os.path.join(out, "pileup_train", "last.ckpt")
+    ev = ["evaluate-pileup", "--data", os.path.join(out, "train_data"),
+          "--model", fitted]
+    for name, extra in (("evaluate-pileup", []),
+                        ("evaluate-pileup --for-evaluate",
+                         ["--for-evaluate"])):
+        rows[name], launches[name] = _evaluate(
+            name, ev + extra + ["-o", os.path.join(
+                WORK, name.replace(" ", "_"))] + dev_args,
+            "evaluate_pileup.json", ("bilstm_stream", "bilstm_center"))
+    rows["evaluate-pileup --for-evaluate"]["card_vs_cpu"] = check_agreement(
+        "evaluate-pileup --for-evaluate", *[
+            list(E.pileup_scores(PipelineConfig(), fitted, os.path.join(
+                out, "train_data"), True, 2000, d))
+            for d in (dev, torch.device("cpu"))])
 
     # a second call on the same output resumes and runs no stage
     dt = timed("call: resume", call + ["-o", run] + dev_args)
@@ -2287,14 +2487,17 @@ def phase_call(dev):
     return launches, rows
 
 
-def profile_train_steps(dev, arrays, rng):
-    """Steady-state training steps of both models at full width, apart from
-    the CLI's set-up: ms a step on the host clock (device synchronised; the
-    step includes the batch's host-to-device copy and the metric reads the
-    trainer makes), then torch.profiler over PROFILE_STEPS steps: device
-    busy time a step (the sum of device time of every kernel and copy: one
-    stream, so they do not overlap), its share of the step, the share of
-    the port's own kernels, and the five costliest device functions."""
+def profile_train_steps(dev, arrays, rng, flavors=True):
+    """Steady-state training steps of both models at full width, with
+    Lookahead-Adam and (`flavors`) with each model's Ranger flavor, apart
+    from the CLI's set-up: ms a step on the host clock over TIME_STEPS
+    steps (device synchronised; the step includes the batch's
+    host-to-device copy and the metric reads the trainer makes; four turns
+    of each optimizer in alternation, the upper median kept), then
+    torch.profiler over PROFILE_STEPS steps: device busy time a step (the
+    sum of device time of every kernel and copy: one stream, so they do
+    not overlap), its share of the step, the share of the port's own
+    kernels, and the five costliest device functions."""
     import numpy as np
     import torch
 
@@ -2314,9 +2517,9 @@ def profile_train_steps(dev, arrays, rng):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     init_gen = torch.Generator().manual_seed(SEED)
 
-    def pileup_step():
+    def pileup_step(opt):
         mcfg = PileupModelConfig()
-        tx = build_optimizer(tcfg.optim, 100)
+        tx = build_optimizer(replace(tcfg.optim, type=opt), 100)
         state = init_state(PileupModel(mcfg, init_pileup_params(
             init_gen, mcfg)).to(dev), tx)
         step = make_pileup_train_step(mcfg, tcfg, tx, use_kernels=True)
@@ -2333,9 +2536,9 @@ def profile_train_steps(dev, arrays, rng):
 
         return run
 
-    def haplotype_step():
+    def haplotype_step(opt):
         mcfg = HaplotypeModelConfig()
-        tx = build_optimizer(tcfg.optim, 100)
+        tx = build_optimizer(replace(tcfg.optim, type=opt), 100)
         state = init_state(HaplotypeModel(mcfg, init_haplotype_params(
             init_gen, mcfg)).to(dev), tx)
         step = make_haplotype_train_step(mcfg, tcfg, tx, use_kernels=True)
@@ -2356,18 +2559,30 @@ def profile_train_steps(dev, arrays, rng):
 
         return run
 
-    out = {}
-    for name, make in (("train-pileup", pileup_step),
-                       ("train-haplotype", haplotype_step)):
-        run = make()
-        for _ in range(3):
-            run()
-        torch.cuda.synchronize()
-        t = time.monotonic()
-        for _ in range(PROFILE_STEPS):
-            run()
-        torch.cuda.synchronize()
-        ms = (time.monotonic() - t) / PROFILE_STEPS * 1e3
+    out, cases = {}, []
+    for model, make, flavor in (("train-pileup", pileup_step, "ranger"),
+                                ("train-haplotype", haplotype_step,
+                                 "ranger21")):
+        # both optimizers' steps timed in turns (A B B A A B B A), the
+        # host clock drifts between runs
+        runs = {opt: make(opt) for opt in ("lookahead_adam", flavor)[
+            :2 if flavors else 1]}
+        for run in runs.values():
+            for _ in range(3):
+                run()
+        turns = {opt: [] for opt in runs}
+        for turn in range(4):
+            for opt in list(runs)[::1 if turn % 2 == 0 else -1]:
+                torch.cuda.synchronize()
+                t = time.monotonic()
+                for _ in range(TIME_STEPS):
+                    runs[opt]()
+                torch.cuda.synchronize()
+                turns[opt].append((time.monotonic() - t) / TIME_STEPS * 1e3)
+        cases += [(model if opt == "lookahead_adam" else f"{model} {opt}",
+                   runs[opt], turns[opt]) for opt in runs]
+    for name, run, turns in cases:
+        ms = sorted(turns)[len(turns) // 2]
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
@@ -2389,7 +2604,7 @@ def profile_train_steps(dev, arrays, rng):
         ours = sum(v for k, v in dev_ms.items() if "lstm" in k)
         top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:5]
         out[name] = {
-            "ms_per_step": ms,
+            "ms_per_step": ms, "ms_per_step_turns": turns,
             "device_busy_ms_per_step": busy if busy else None,
             "device_busy_share": busy / ms if busy else None,
             "port_kernels_ms_per_step": ours if busy else None,

@@ -152,8 +152,10 @@ class TrainConfig:
     # train.py:223-230 first_stage encoder/forward freeze)
     first_stage: Optional[int] = None
     freeze_prefixes: tuple = ("encoder",)
-    # training batches per device dispatch (JAX package; unused by the
-    # port's inference slice, kept so shared YAML files load)
+    # training batches per device dispatch in the JAX package. The port
+    # accepts the field (shared YAML files load) and runs single steps;
+    # only the haplotype trainer's buffering, which keeps the JAX step
+    # order, reads it
     steps_per_call: int = 8
     optim: OptimConfig = field(default_factory=OptimConfig)
 

@@ -1,17 +1,28 @@
-"""Feature-shard storage: the shard parts of the JAX package's io/bins.py,
-copied so that both packages read and write the same files.
+"""Feature-shard storage: the JAX package's io/bins.py, copied so that
+both packages read and write the same files.
 
 Shards are .npz: zstd-wrapped where the `zstandard` module is installed,
 plain deflate zip where it is not or under NSP_SHARD_CODEC=deflate (see
-`shard_codec`). The HDF5 interop and training-bin helpers of the JAX
-package are not part of the port.
+`shard_codec`). For interop with the reference tooling the HDF5 helpers
+write and read plain-HDF5 files with the reference's dataset names and
+string layouts:
+  - pileup predict bins (make_bin_predict_data.py:79-109): position_matrix
+    [N,33,18] int32, position [N,1] S83 "chr:pos:refseq33", alt_info [N,1]
+    S5000;
+  - pileup train bins (make_bin_train_data.py:100-105): the same and
+    label [N,90] int32;
+  - haplotype bins (write_to_bins.py:44-63): {pileup,haplotype}_{sequences,
+    hap,baseq,mapq} [N,D,L] int32, candidate_positions [N,1] S,
+    haplotype_positions [N,11] S.
+They need h5py, imported when one of them is called (`require_h5py`);
+where it is not installed they raise ImportError.
 """
 from __future__ import annotations
 
 import importlib.util
 import os
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -187,6 +198,113 @@ def load_pileup_shard(path: str) -> PileupShard:
     )
 
 
+def require_h5py():
+    """The h5py module, which the HDF5 helpers need and the rest of the
+    package does not."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(
+            "the reference-layout HDF5 bins need h5py, which is not "
+            "installed; the .npz shards and train arrays need no h5py") from e
+    return h5py
+
+
+def save_pileup_shard_h5(path: str, shard: PileupShard) -> None:
+    """Reference-layout HDF5 (readable by the reference PredictDataset)."""
+    h5py = require_h5py()
+
+    n = len(shard)
+    position = np.array(
+        [f"{shard.contig}:{int(p)}:{r.decode()}".encode()
+         for p, r in zip(shard.positions, np.asarray(shard.ref_seqs, dtype="S"))],
+        dtype="S83").reshape(n, 1)
+    with h5py.File(path, "w") as f:
+        f.create_dataset("position_matrix", data=shard.matrix.astype(np.int32))
+        f.create_dataset("position", data=position)
+        f.create_dataset("alt_info",
+                         data=np.asarray(shard.alt_info, dtype="S5000").reshape(n, 1))
+
+
+def load_pileup_shard_h5(path: str) -> PileupShard:
+    h5py = require_h5py()
+
+    with h5py.File(path, "r") as f:
+        matrix = np.asarray(f["position_matrix"])
+        position = np.asarray(f["position"]).reshape(-1)
+        alt_info = np.asarray(f["alt_info"]).reshape(-1)
+    contigs, positions, refs = [], [], []
+    for item in position:
+        ctg, pos, seq = item.decode().strip().split(":")
+        contigs.append(ctg)
+        positions.append(int(pos))
+        refs.append(seq.encode())
+    return PileupShard(
+        contig=contigs[0] if contigs else "",
+        positions=np.asarray(positions, dtype=np.int64),
+        matrix=matrix,
+        ref_seqs=np.asarray(refs, dtype="S"),
+        alt_info=alt_info,
+    )
+
+
+def save_pileup_train_h5(path: str, arrays) -> None:
+    """Reference-layout HDF5 TRAIN bin (make_bin_train_data.py:100-105):
+    position_matrix [N,33,18] int32, position [N,1] S83, label [N,90]
+    int32, alt_info [N,1] S5000. Readable by the reference TrainDataset
+    (PileupModel/dataset.py:73-96) for cross-stack train-data diffing.
+    `arrays` is a train.data.PileupTrainArrays with ref_seqs/alt_info set."""
+    h5py = require_h5py()
+
+    if arrays.ref_seqs is None or arrays.alt_info is None:
+        raise ValueError("train arrays lack ref_seqs/alt_info provenance "
+                         "(rebuild with build_pileup_train_arrays)")
+    n = len(arrays.positions)
+    position = np.array(
+        [f"{arrays.contig}:{int(p)}:{r.decode()}".encode()
+         for p, r in zip(arrays.positions,
+                         np.asarray(arrays.ref_seqs, dtype="S"))],
+        dtype="S83").reshape(n, 1)
+    with h5py.File(path, "w") as f:
+        f.create_dataset("position_matrix",
+                         data=arrays.matrix.astype(np.int32))
+        f.create_dataset("position", data=position)
+        f.create_dataset("label", data=arrays.label.astype(np.int32))
+        f.create_dataset("alt_info",
+                         data=np.asarray(arrays.alt_info,
+                                         dtype="S5000").reshape(n, 1))
+
+
+def load_pileup_train_h5(path: str):
+    """Read a reference-layout train bin back into PileupTrainArrays."""
+    h5py = require_h5py()
+
+    from ..train.data import PileupTrainArrays
+
+    with h5py.File(path, "r") as f:
+        matrix = np.asarray(f["position_matrix"])
+        label = np.asarray(f["label"])
+        position = np.asarray(f["position"]).reshape(-1)
+        alt_info = np.asarray(f["alt_info"]).reshape(-1)
+    contigs, positions, refs = [], [], []
+    for item in position:
+        ctg, pos, seqs = item.decode().strip().split(":")
+        contigs.append(ctg)
+        positions.append(int(pos))
+        refs.append(seqs.encode())
+    # zygosity class > 0 (1/1 or 0/1) marks a variant; gt alone cannot
+    # (hom-ref sites carry their ref base's gt21 class)
+    zy = label[:, 21:24].argmax(1) if len(label) else np.zeros(0, np.int64)
+    return PileupTrainArrays(
+        matrix=matrix, label=label,
+        positions=np.asarray(positions, dtype=np.int64),
+        is_variant=zy > 0,
+        contig=contigs[0] if contigs else "",
+        ref_seqs=np.asarray(refs, dtype="S33") if refs
+        else np.zeros(0, "S33"),
+        alt_info=alt_info)
+
+
 # ---------------------------------------------------------------------------
 # haplotype shards
 # ---------------------------------------------------------------------------
@@ -248,6 +366,57 @@ def load_haplotype_shard(path: str) -> HaplotypeShard:
         group_positions=z["group_positions"],
         pileup={k: z[f"pileup_{k}"] for k in _KEYS},
         haplotype={k: z[f"haplotype_{k}"] for k in _KEYS},
+    )
+
+
+def save_haplotype_shard_h5(path: str, shard: HaplotypeShard,
+                            candidate_labels: Optional[np.ndarray] = None
+                            ) -> None:
+    """Reference-layout HDF5 (write_to_bins.py dataset names). Passing
+    `candidate_labels` [N,3] (confident-flag, gt21, zygosity — the
+    train.data.attach_haplotype_labels output) produces the TRAIN-bin
+    layout (make_train_bins.py:123-127,258) readable by the reference
+    TrainingDataset."""
+    h5py = require_h5py()
+
+    n = len(shard)
+    adj = shard.group_positions.shape[1]
+    cand = np.array([f"{shard.contig}:{int(p)}".encode()
+                     for p in shard.candidate_positions],
+                    dtype=f"S{30 * (adj - 1)}").reshape(n, 1)
+    hpos = np.array([[f"{shard.contig}:{int(p)}".encode() for p in row]
+                     for row in shard.group_positions],
+                    dtype=f"S{30 * (adj - 1)}")
+    with h5py.File(path, "w") as f:
+        for k in _KEYS:
+            f.create_dataset(f"pileup_{k}", data=shard.pileup[k].astype(np.int32))
+            f.create_dataset(f"haplotype_{k}", data=shard.haplotype[k].astype(np.int32))
+        f.create_dataset("candidate_positions", data=cand)
+        f.create_dataset("haplotype_positions", data=hpos)
+        if candidate_labels is not None:
+            f.create_dataset("candidate_labels",
+                             data=np.asarray(candidate_labels,
+                                             dtype=np.int32).reshape(n, 3))
+
+
+def load_haplotype_shard_h5(path: str) -> HaplotypeShard:
+    h5py = require_h5py()
+
+    with h5py.File(path, "r") as f:
+        data = {k: np.asarray(f[k]) for k in f.keys()}
+    cand_raw = data["candidate_positions"].reshape(-1)
+    contig = cand_raw[0].decode().split(":")[0] if len(cand_raw) else ""
+    cand = np.array([int(v.decode().split(":")[1]) for v in cand_raw],
+                    dtype=np.int64)
+    hpos = np.array(
+        [[int(v.decode().split(":")[1]) for v in row]
+         for row in data["haplotype_positions"]], dtype=np.int64)
+    return HaplotypeShard(
+        contig=contig,
+        candidate_positions=cand,
+        group_positions=hpos,
+        pileup={k: data[f"pileup_{k}"] for k in _KEYS},
+        haplotype={k: data[f"haplotype_{k}"] for k in _KEYS},
     )
 
 

@@ -23,10 +23,17 @@ trainers the f32 path, as the JAX trainer does off the TPU):
                    recurrence under autograd, as the JAX package trains it)
   legacy-filter-labels  label-noise positions -> filtered_positions.txt
   legacy-heuristic      edge-graph homozygote caller (numpy, no device)
+  evaluate-pileup  labeled pileup arrays (.npz) + a checkpoint -> gt/zy
+                   confusion, accuracy and macro-F1 (evaluate_pileup.json)
+  evaluate-haplotype  labeled haplotype shards + truth -> the same
+                   (evaluate_haplotype.json); the featurizer on the device
+  compare-failed   failed-site list -> its confident-BED het-truth rows
+                   (host only, no --device)
 
-Multi-host `call` (`--num-hosts` above 1) and the `evaluate-*` commands
-are not ported yet. s5 has no subcommand (the JAX CLI has none either): it runs through
-`runtime.stages.stage_haplotype_predict`.
+`make-train-data --h5` also writes each contig's reference-layout HDF5
+train bin, which needs h5py. Multi-host `call` (`--num-hosts` above 1) is
+not ported yet. s5 has no subcommand (the JAX CLI has none either): it
+runs through `runtime.stages.stage_haplotype_predict`.
 """
 from __future__ import annotations
 
@@ -62,9 +69,9 @@ def _run_make_train_data(args, cfg) -> int:
     from ..train import data as D
 
     if args.h5:
-        raise NotImplementedError(
-            "make-train-data --h5 is not ported (the reference-layout HDF5 "
-            "train bins need h5py); the .npz arrays are written without it")
+        from ..io.bins import require_h5py
+
+        require_h5py()      # before the first contig's work, not after
     ref = FastaReference(args.ref)
     with open(args.truth_vcf) as f:
         truth = D.split_truth_vcf(f)
@@ -108,6 +115,11 @@ def _run_make_train_data(args, cfg) -> int:
             arrays = D.build_pileup_train_arrays(
                 batch, truth.get(ctg, []), args.max_nonvariant_ratio, rng)
             D.save_train_arrays(os.path.join(out_dir, f"{ctg}.npz"), arrays)
+            if args.h5:
+                from ..io.bins import save_pileup_train_h5
+
+                save_pileup_train_h5(
+                    os.path.join(out_dir, f"{ctg}.bin"), arrays)
             total["sites"] += len(arrays.positions)
             total["variants"] += int(arrays.is_variant.sum())
     print(total)
@@ -184,17 +196,12 @@ def _run_train_haplotype(args, cfg) -> int:
 
     from ..io.bins import list_shards, open_npz
     from ..train import data as D
-    from ..train import labels as L
     from ..train.train_haplotype import train_haplotype
+    from . import evaluate as E
 
     ref = FastaReference(args.ref)
-    seqs = {name: ref.contig(name) for name in ref.names}
-    with open(args.bed) as f:
-        bed = L.parse_bed(f)
-    with open(args.truth_vcf) as f:
-        truth_arrays = L.truth_arrays(
-            {n: ref.length(n) for n in ref.names}, seqs, bed, f)
-    D.set_reference_for_training(seqs)
+    truth_arrays = E.truth_arrays(ref, args.truth_vcf, args.bed)
+    D.set_reference_for_training({n: ref.contig(n) for n in ref.names})
 
     tcfg = cfg.train
     tcfg.batch_size = args.batch_size
@@ -228,6 +235,94 @@ def _run_train_haplotype(args, cfg) -> int:
         device=args.device, resume_from=args.resume,
         val_iter_factory=val_factory, lr_steps_per_epoch=steps_hint)
     print({"steps": state.step, "epochs": state.epoch})
+    return 0
+
+
+def _add_eval_parsers(sub) -> None:
+    p = sub.add_parser("evaluate-pileup",
+                       help="confusion/accuracy/macro-F1 of a pileup "
+                            "checkpoint on labeled arrays (reference "
+                            "PileupModel eval pass)")
+    _add_common(p)
+    p.add_argument("--data", required=True, help="dir of labeled .npz arrays")
+    p.add_argument("--model", required=True)
+    p.add_argument("--for-evaluate", action="store_true",
+                   help="variant-only filter (zy>0), reference "
+                        "dataset.py:100-106")
+    p.add_argument("--batch-size", type=int, default=2000)
+    _add_device(p)
+
+    p = sub.add_parser("evaluate-haplotype",
+                       help="confusion/accuracy/macro-F1 of a haplotype "
+                            "checkpoint on labeled shards (reference "
+                            "evaluate_dev.py)")
+    _add_common(p)
+    p.add_argument("--shards", required=True)
+    p.add_argument("--ref", required=True)
+    p.add_argument("--truth-vcf", required=True)
+    p.add_argument("--bed", required=True)
+    p.add_argument("--model", required=True)
+    p.add_argument("--batch-size", type=int, default=512)
+    _add_device(p)
+
+    p = sub.add_parser("compare-failed",
+                       help="filter a failed-site list to confident-BED "
+                            "het-truth rows (reference compare.py)")
+    p.add_argument("--failed", required=True,
+                   help="TSV of failed sites, rows start ctg\\tpos")
+    p.add_argument("--ref", required=True)
+    p.add_argument("--truth-vcf", required=True)
+    p.add_argument("--bed", required=True)
+    p.add_argument("--out", required=True,
+                   help="output file of confirmed het false negatives")
+
+
+def _run_compare_failed(args) -> int:
+    from ..eval.f1 import classify_failed_sites
+    from .evaluate import truth_arrays
+
+    truth = truth_arrays(FastaReference(args.ref), args.truth_vcf, args.bed)
+    with open(args.failed) as f:
+        kept = classify_failed_sites(f, truth)
+    with open(args.out, "w") as f:
+        f.writelines(kept)
+    print({"failed_in": args.failed, "het_fn": len(kept)})
+    return 0
+
+
+def _run_evaluate_pileup(args, cfg) -> int:
+    """Reference PileupModel eval pass (train.py eval()/dataset
+    for_evaluate): per-class confusion + accuracy + macro-F1 on labeled
+    arrays."""
+    from .. import constants as Cn
+    from . import evaluate as E
+
+    mcfg = cfg.pileup_model
+    gt_conf, zy_conf = E.confusions(
+        E.pileup_scores(cfg, args.model, args.data, args.for_evaluate,
+                        args.batch_size, args.device),
+        mcfg.gt_num_class, mcfg.zy_num_class)
+    E.write_report(os.path.join(args.output, "evaluate_pileup.json"),
+                   gt_conf, zy_conf, Cn.GT21_LABELS)
+    return 0
+
+
+def _run_evaluate_haplotype(args, cfg) -> int:
+    """Reference HaplotypeModel/evaluate_dev.py: score a checkpoint on
+    labeled haplotype shards (confusion, accuracy, macro-F1)."""
+    from .. import constants as Cn
+    from ..io.bins import list_shards
+    from . import evaluate as E
+
+    ref = FastaReference(args.ref)
+    hcfg = cfg.haplotype_model
+    gt_conf, zy_conf = E.confusions(
+        E.haplotype_scores(cfg, args.model, list_shards(args.shards), ref,
+                           E.truth_arrays(ref, args.truth_vcf, args.bed),
+                           args.batch_size, args.device),
+        hcfg.gt_num_class, hcfg.zy_num_class)
+    E.write_report(os.path.join(args.output, "evaluate_haplotype.json"),
+                   gt_conf, zy_conf, Cn.GT21_LABELS[:hcfg.gt_num_class])
     return 0
 
 
@@ -943,7 +1038,8 @@ def main(argv=None) -> int:
     p.add_argument("--contigs", nargs="*", default=None)
     p.add_argument("--max-nonvariant-ratio", type=float, default=5.0)
     p.add_argument("--h5", action="store_true",
-                   help="reference-layout HDF5 train bins: not ported")
+                   help="also write reference-layout HDF5 train bins "
+                        "({contig}.bin; needs h5py)")
 
     p = sub.add_parser("s2-predict", help="pileup shards -> pileup.vcf")
     _add_common(p)
@@ -989,9 +1085,12 @@ def main(argv=None) -> int:
     p.add_argument("--first-stage", type=int, default=None)
     _add_device(p)
     _add_legacy_parsers(sub)
+    _add_eval_parsers(sub)
 
     args = parser.parse_args(argv)
 
+    if args.cmd == "compare-failed":
+        return _run_compare_failed(args)
     if args.cmd == "sort-vcf":
         from ..decode.sort import sort_vcf_lines
 
@@ -1047,6 +1146,10 @@ def main(argv=None) -> int:
         return _run_train_haplotype(args, cfg)
     if args.cmd in _LEGACY:
         return _LEGACY[args.cmd](args, cfg)
+    if args.cmd == "evaluate-pileup":
+        return _run_evaluate_pileup(args, cfg)
+    if args.cmd == "evaluate-haplotype":
+        return _run_evaluate_haplotype(args, cfg)
     if args.cmd == "s2-predict":
         m = stages.stage_pileup_predict(
             cfg, FastaReference(args.ref), args.shards,

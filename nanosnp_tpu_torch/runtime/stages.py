@@ -518,14 +518,14 @@ def join_prewarm_threads(timeout: Optional[float] = None) -> None:
 _UNIT_COLUMNS = 1 << 22
 
 
-def _compute_dtype(cfg: PipelineConfig) -> torch.dtype:
+def compute_dtype(cfg: PipelineConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.inference.use_bf16 else torch.float32
 
 
 def pileup_model_predictor(cfg: PipelineConfig, model: PileupModel,
                            device) -> BatchedPredictor:
     """Dense-window s2 predictor: [B, 33, 18] int16 counts -> (gt, zy)."""
-    dtype = _compute_dtype(cfg)
+    dtype = compute_dtype(cfg)
 
     def fn(x):
         return pileup_predict(model, x.float(), compute_dtype=dtype)
@@ -538,7 +538,7 @@ def pileup_columnar_fn(cfg: PipelineConfig, model: PileupModel):
     """(columns [U, 18] int16, idx [B] int64) on the device -> (gt, zy):
     gathers each candidate's 33-wide window from the resident column union
     on the device, then runs the pileup model."""
-    dtype = _compute_dtype(cfg)
+    dtype = compute_dtype(cfg)
     flank = (cfg.pileup_model.seq_len - 1) // 2
 
     def fn(cols, idx):
@@ -885,7 +885,7 @@ def haplotype_model_predictor(cfg: PipelineConfig, model: HaplotypeModel,
                               device) -> BatchedPredictor:
     """Haplotype model on [B, 33, 105] / [B, 11, 105] features (already on
     the device) -> (gt, zy) probabilities."""
-    dtype = _compute_dtype(cfg)
+    dtype = compute_dtype(cfg)
 
     def fn(xp, xh):
         return haplotype_predict(model, xp, xh, compute_dtype=dtype)
@@ -898,7 +898,7 @@ def haplotype_featurizer(cfg: PipelineConfig, fs: int,
                          device) -> BatchedPredictor:
     """[B, D, L] int8/int16 read matrices of both views -> [B, L, 105]
     features of both views, on the device, in the compute dtype."""
-    dtype = _compute_dtype(cfg)
+    dtype = compute_dtype(cfg)
 
     def fn(seq_p, bq_p, mq_p, hap_p, ref_p, seq_h, bq_h, mq_h, hap_h, ref_h):
         xp = haplotype_features(seq_p, bq_p, mq_p, hap_p, ref_p)

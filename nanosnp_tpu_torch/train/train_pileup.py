@@ -349,15 +349,16 @@ def save_checkpoint(path: str, state: TrainState,
     blob = {"params": params_to_numpy(tree), "step": state.step,
             "epoch": state.epoch}
     if include_optimizer:
-        o = state.opt_state
         blob["full_params"] = {
             "fast": blob["params"],
             "slow": None if state.slow is None else params_to_numpy(
                 state.slow)}
+        # the counts as ints, each per-leaf list of the optimizer's state
+        # as a tree like the params (Adam's mu and nu, SGD's trace, ...)
         blob["opt_state"] = {
-            "count": o["count"], "steps_since_sync": o["steps_since_sync"],
-            "mu": params_to_numpy(unflatten_like(tree, o["mu"])),
-            "nu": params_to_numpy(unflatten_like(tree, o["nu"]))}
+            k: params_to_numpy(unflatten_like(tree, v))
+            if isinstance(v, list) else v
+            for k, v in state.opt_state.items()}
         if generator is not None:
             blob["generator_state"] = generator.get_state().numpy()
     with open(path, "wb") as f:
@@ -393,15 +394,17 @@ def _restore(state: TrainState, blob: dict,
             for (_, p), (_, v) in zip(flatten_tree(state.slow), flatten_tree(
                     blob["full_params"]["slow"])):
                 p.copy_(torch.from_numpy(np.asarray(v)))
-    o = blob["opt_state"]
     dev = flatten_tree(tree)[0][1].device
+    saved = blob["opt_state"]
+    if set(saved) != set(state.opt_state):
+        raise ValueError(
+            f"the checkpoint's optimizer state {sorted(saved)} is not the "
+            f"configured optimizer's {sorted(state.opt_state)}")
     state.opt_state = {
-        "count": int(o["count"]),
-        "steps_since_sync": int(o["steps_since_sync"]),
-        "mu": [torch.from_numpy(np.asarray(v)).to(dev)
-               for _, v in flatten_tree(o["mu"])],
-        "nu": [torch.from_numpy(np.asarray(v)).to(dev)
-               for _, v in flatten_tree(o["nu"])]}
+        k: [torch.from_numpy(np.asarray(v)).to(dev)
+            for _, v in flatten_tree(o)]
+        if isinstance(o, (dict, list)) else int(o)
+        for k, o in saved.items()}
     state.step, state.epoch = int(blob["step"]), int(blob["epoch"])
     if generator is not None and "generator_state" in blob:
         generator.set_state(torch.from_numpy(blob["generator_state"]))

@@ -324,8 +324,27 @@ def test_make_train_data_equals_jax_cli(world):
     assert names == ["chrA.npz", "chrB.npz"]
     z = np.load(tmp / "mtd_torch" / "train_data" / "chrA.npz")
     assert z["is_variant"].sum() > 50
-    with pytest.raises(NotImplementedError, match="h5"):
-        torch_main(args + ["--h5", "-o", str(tmp / "mtd_h5")])
+    # --h5 also writes each contig's reference-layout HDF5 train bin: the
+    # same datasets as the JAX CLI's, and the same arrays beside them
+    import h5py
+
+    assert jax_main(args + ["--h5", "-o", str(tmp / "mtd_jax_h5")]) == 0
+    assert torch_main(args + ["--h5", "-o", str(tmp / "mtd_h5")]) == 0
+    got_dir, want_dir = tmp / "mtd_h5" / "train_data", \
+        tmp / "mtd_jax_h5" / "train_data"
+    assert sorted(os.listdir(got_dir)) == sorted(os.listdir(want_dir)) == [
+        "chrA.bin", "chrA.npz", "chrB.bin", "chrB.npz"]
+    for name in ("chrA.bin", "chrB.bin"):
+        with h5py.File(got_dir / name) as g, h5py.File(want_dir / name) as w:
+            assert sorted(g) == sorted(w) == ["alt_info", "label",
+                                              "position", "position_matrix"]
+            for k in w:
+                assert g[k].dtype == w[k].dtype, (name, k)
+                assert np.array_equal(g[k][()], w[k][()]), (name, k)
+    for name in ("chrA.npz", "chrB.npz"):
+        a, b = np.load(got_dir / name), np.load(want_dir / name)
+        assert sorted(a) == sorted(b)
+        assert all(np.array_equal(a[k], b[k]) for k in a)
 
 
 def test_call_refusals(world, tmp_path):

@@ -86,16 +86,17 @@ def _assert_trees_close(got, want, atol, rtol):
                                    err_msg=str(path))
 
 
-def _run_both(jax_step, jax_params, port_model, port_step, batches):
+def _run_both(jax_step, jax_params, port_model, port_step, batches,
+              opt=OPT):
     """13 steps on both sides. -> (jax losses, port losses, final JAX
     LookaheadParams as numpy, port state)."""
-    tx = jax_optim.build_optimizer(JOptCfg(**OPT), STEPS_PER_EPOCH)
+    tx = jax_optim.build_optimizer(JOptCfg(**opt), STEPS_PER_EPOCH)
     params = jax_optim.wrap_params_for_lookahead(
         jax.tree.map(jnp.asarray, jax_params), True)
     opt_state = tx.init(params)
     step = jax.jit(jax_step(tx))
     rng = jax.random.key(0)
-    ptx = optim.build_optimizer(OptimConfig(**OPT), STEPS_PER_EPOCH)
+    ptx = optim.build_optimizer(OptimConfig(**opt), STEPS_PER_EPOCH)
     state = init_state(port_model, ptx)
     pstep = port_step(ptx)
     gen = torch.Generator().manual_seed(0)
@@ -120,6 +121,10 @@ def _check_run(want, got, jparams, state):
 
 
 def test_pileup_train_step_matches_jax():
+    _check_run(*_pileup_run(OPT))
+
+
+def _pileup_run(opt):
     rng = np.random.default_rng(21)
     jcfg = JPileCfg(**PILE)
     jparams = _np_tree(jax_init_pileup(jax.random.key(1), jcfg))
@@ -144,8 +149,8 @@ def test_pileup_train_step_matches_jax():
         lambda tx: jax_pileup_step(jcfg, jt, tx, use_pallas=False), jparams,
         model,
         lambda tx: make_pileup_train_step(model.cfg, tcfg, tx,
-                                          use_kernels=False), batches)
-    _check_run(*run)
+                                          use_kernels=False), batches, opt)
+    return run
 
 
 def _hap_batch(rng, n, depth):
@@ -169,6 +174,10 @@ def _hap_batch(rng, n, depth):
 
 
 def test_haplotype_train_step_matches_jax():
+    _check_run(*_haplotype_run(OPT))
+
+
+def _haplotype_run(opt):
     rng = np.random.default_rng(22)
     jcfg = JHapCfg(**HAP)
     jparams = _np_tree(jax_init_haplotype(jax.random.key(2), jcfg))
@@ -185,20 +194,49 @@ def test_haplotype_train_step_matches_jax():
         lambda tx: jax_haplotype_step(jcfg, jt, tx, use_pallas=False),
         jparams, model,
         lambda tx: make_haplotype_train_step(model.cfg, tcfg, tx,
-                                             use_kernels=False), batches)
+                                             use_kernels=False), batches,
+        opt)
+    return run
+
+
+@pytest.mark.parametrize("model,opt_type", [("pileup", "ranger"),
+                                            ("haplotype", "ranger21")])
+def test_ranger_train_steps_match_jax(model, opt_type):
+    """The reference's own optimizers of each model (Ranger for the pileup
+    model, Ranger21 for the haplotype model), both with Lookahead: the
+    same 13 steps as above."""
+    run = (_pileup_run if model == "pileup" else _haplotype_run)(
+        dict(OPT, type=opt_type))
     _check_run(*run)
 
 
-@pytest.mark.parametrize("opt_type,weight_decay",
-                         [("lookahead_adam", 0.0), ("adam", 1e-2)])
+# every optimizer type with the weight decay it reads (radam, sgd, adadelta
+# and ranger read none)
+OPT_CASES = [("lookahead_adam", 0.0), ("adam", 1e-2), ("radam", 0.0),
+             ("lookahead_radam", 0.0), ("novograd", 1e-2),
+             ("lookahead_novograd", 0.0), ("sgd", 0.0), ("adadelta", 0.0),
+             ("ranger", 0.0), ("ranger21", 1e-2)]
+# 30 updates: Lookahead syncs five times, RAdam's rectification starts at
+# update 6 (rho crosses 5), novograd seeds its second moment at update 1,
+# and ranger21's lr21 (30 planned updates: 6 epochs of 5) warms up over
+# updates 1-3 and warms down over 28-30
+OPT_STEPS = 30
+
+
+@pytest.mark.parametrize("opt_type,weight_decay", OPT_CASES)
 def test_optimizer_matches_optax(opt_type, weight_decay):
     """Fixed gradient sequences through optax (the JAX package's
-    build_optimizer) and the port's Optimizer; some steps clip."""
+    build_optimizer) and the port's Optimizer; some steps clip. The leaves
+    have rank 1, 2 and 3, one of them [1, k], the shapes on which gradient
+    centralization, norm loss and adaptive clipping choose their axes."""
     rng = np.random.default_rng(23)
     cfg = dict(OPT, type=opt_type, weight_decay=weight_decay,
-               max_grad_norm=2.0)
-    tree = {"enc": {"w": rng.standard_normal((3, 4)).astype(np.float32)},
-            "head": [rng.standard_normal(5).astype(np.float32)]}
+               max_grad_norm=10.0, ranger21_epochs=6)
+    tree = {"enc": {"w": rng.standard_normal((3, 4)).astype(np.float32),
+                    "w_hh": rng.standard_normal((2, 4, 8)).astype(
+                        np.float32)},
+            "head": [rng.standard_normal(5).astype(np.float32),
+                     rng.standard_normal((1, 6)).astype(np.float32)]}
     tx = jax_optim.build_optimizer(JOptCfg(**cfg), STEPS_PER_EPOCH)
     lookahead = jax_optim.is_lookahead_type(opt_type)
     jp = jax_optim.wrap_params_for_lookahead(
@@ -210,7 +248,7 @@ def test_optimizer_matches_optax(opt_type, weight_decay):
     slow = [p.clone() for p in fast] if lookahead else None
     ps = ptx.init(fast)
     clipped = 0
-    for i in range(N_STEPS):
+    for i in range(OPT_STEPS):
         grads = jax.tree.map(
             lambda a: (rng.standard_normal(a.shape) * (0.3 + i % 3)
                        ).astype(np.float32), tree)
@@ -229,13 +267,35 @@ def test_optimizer_matches_optax(opt_type, weight_decay):
             for g, (_, w) in zip(slow, flatten_tree(want["slow"])):
                 np.testing.assert_allclose(g.numpy(), w.numpy(),
                                            atol=OPT_ATOL, rtol=OPT_RTOL)
-    assert 0 < clipped < N_STEPS
+    assert 0 < clipped < OPT_STEPS
+    assert ps["count"] == OPT_STEPS
 
 
-@pytest.mark.parametrize("opt_type", optim.NOT_PORTED)
-def test_unported_optimizers_raise(opt_type):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optim.build_optimizer(OptimConfig(type=opt_type))
+def test_radam_rectification_starts_at_update_six():
+    """The branch the optimizer test crosses: rho is below 5 for the first
+    five updates and above it from the sixth (optax 0.2.6, b2 0.999)."""
+    radam = optim.ScaleByRAdam()
+    assert [bool(radam.rectification(n)[0] >= 5) for n in range(1, 9)] == \
+        [False] * 5 + [True] * 3
+
+
+def test_ranger21_schedule_warms_up_and_down():
+    """lr21 around the base schedule, 30 planned updates: warmup over the
+    first 3 (10%), warmdown after update 27 (90%), base lr between."""
+    cfg = OptimConfig(**dict(OPT, type="ranger21", ranger21_epochs=6))
+    base = optim.lr_schedule(cfg, STEPS_PER_EPOCH)
+    lr21 = optim.ranger21_schedule(cfg, STEPS_PER_EPOCH, base)
+    factor = [min((s + 1) / 3, 1.0) * (min((30 - s) / 3, 1.0) if s > 27
+                                       else 1.0) for s in range(OPT_STEPS)]
+    np.testing.assert_allclose([lr21(s) for s in range(OPT_STEPS)],
+                               [base(s) * f for s, f in enumerate(factor)],
+                               rtol=1e-6)
+    assert factor[:3] == [1 / 3, 2 / 3, 1.0] and factor[28:] == [2 / 3, 1 / 3]
+
+
+def test_unknown_optimizer_type_raises():
+    with pytest.raises(NotImplementedError, match="lamb"):
+        optim.build_optimizer(OptimConfig(type="lamb"))
 
 
 def test_lr_schedule_matches_jax_across_epochs():
@@ -404,3 +464,41 @@ def test_resume_from_last_ckpt_continues_like_an_uninterrupted_run(tmp_path):
     assert (resumed.step, resumed.epoch) == (whole.step, whole.epoch) == (8, 2)
     _assert_trees_close(resumed.model.tree(), whole.model.tree(), 0, 0)
     _assert_trees_close(resumed.slow, whole.slow, 0, 0)
+
+
+@pytest.mark.parametrize("opt_type,state_keys", [
+    ("ranger21", {"count", "steps_since_sync", "mu", "nu"}),
+    ("sgd", {"count", "steps_since_sync", "trace"})])
+def test_resume_with_another_optimizer_continues_like_an_uninterrupted_run(
+        tmp_path, opt_type, state_keys):
+    """As above with Ranger21 (Lookahead, Adam moments, lr21's warmup
+    across the cut) and SGD (momentum trace, no Lookahead): last.ckpt
+    holds whatever state the optimizer keeps, and the resumed run's
+    second epoch is the uninterrupted run's."""
+    import pickle
+
+    arrays = _pileup_arrays(np.random.default_rng(9), 120)
+    items = list(D.batch_iterator(arrays, 30, np.random.default_rng(10),
+                                  epochs=2, mark_epochs=True))
+    cut = items.index(D.EPOCH_END) + 1
+    mcfg = PileupModelConfig(**dict(PILE, dropout=0.3))
+    tcfg = TrainConfig(optim=OptimConfig(**dict(OPT, type=opt_type,
+                                                ranger21_epochs=2)))
+    kw = dict(steps_per_epoch=None, device="cpu", lr_steps_per_epoch=4)
+    whole = train_pileup(iter(items), mcfg, tcfg, out_dir=str(tmp_path / "a"),
+                         **kw)
+    train_pileup(iter(items[:cut]), mcfg, tcfg, out_dir=str(tmp_path / "b"),
+                 **kw)
+    with open(tmp_path / "b" / "last.ckpt", "rb") as f:
+        assert set(pickle.load(f)["opt_state"]) == state_keys
+    resumed = train_pileup(iter(items[cut:]), mcfg, tcfg,
+                           out_dir=str(tmp_path / "c"),
+                           resume_from=str(tmp_path / "b" / "last.ckpt"), **kw)
+    assert (resumed.step, resumed.epoch) == (whole.step, whole.epoch) == (8, 2)
+    _assert_trees_close(resumed.model.tree(), whole.model.tree(), 0, 0)
+    assert (resumed.slow is None) == (opt_type == "sgd")
+    if resumed.slow is not None:
+        _assert_trees_close(resumed.slow, whole.slow, 0, 0)
+    for k in state_keys - {"count", "steps_since_sync"}:
+        for a, b in zip(resumed.opt_state[k], whole.opt_state[k]):
+            assert torch.equal(a, b), k
