@@ -105,6 +105,21 @@
            and `bilstm_center` launched; the variant rows' argmax decisions
            on the card against the CPU's, at least 99% agree). Last, the
            card's busy share of one more `call` under torch.profiler.
+  phase 4b on phase 4's world and fitted model: `call --contigs chrT chrC`
+           in one process, then as two hosts (two child processes on
+           cuda:0, gloo at 127.0.0.1 on a free port, each printing its
+           launch counts); each host must work its LPT contig and the
+           merged pileup.vcf, haplotype.csv and merge.vcf rows must be the
+           one-process rows byte for byte. Then train-pileup (batch 2000,
+           2 epochs on phase 4's training arrays) and train-haplotype
+           (batch 512, 1 epoch), dropout 0, in one process and over two
+           data-parallel ranks (children with NSP_* set): how far each
+           run moved the parameters from their seeded start, the two
+           held to each other within MOVE_TOL (L2 over all parameters),
+           and a control whose ranks skip the gradient average held
+           outside it; the training kernels launched in each rank. Prints both wall times and each host's
+           stage split beside the card's line; two processes share one
+           card, so no time is a claim.
 
 `python3 chip_smoke.py --train-times TREE` times the training kernels
 alone and through their wrappers and profiles both trainers' steps, with
@@ -2483,6 +2498,280 @@ def phase_call(dev):
             device_busy_seconds=busy if busy else None,
             device_idle_share=1 - busy / wall2 if busy else None)
         log("[call: profiled] " + json.dumps(rows["call: profiled"]))
+    # WORK stays: phase 4b runs on this world and this fitted model
+    return launches, rows
+
+
+# a child process of phase 4b: the port's CLI with the given arguments,
+# then the kernel launches it made as one JSON line
+CHILD = ("import json, sys\n"
+         "from nanosnp_tpu_torch.ops import bilstm as K\n"
+         "from nanosnp_tpu_torch.runtime import cli\n"
+         "rc = cli.main(sys.argv[1:])\n"
+         "print(json.dumps({'launches': dict(K.LAUNCHES)}), flush=True)\n"
+         "sys.exit(rc)\n")
+# the control of phase 4b's training check: ranks that skip the gradient
+# average, each training on its half of the batch alone
+CHILD_NO_MEAN = ("from nanosnp_tpu_torch.train import train_pileup as T\n"
+                 "T.all_reduce_mean = list\n") + CHILD
+CHILD_TIMEOUT = 600     # seconds a child of phase 4b may take
+# two ranks against one process: |moved_2 - moved_1| / |moved_1|, the L2
+# norms over every parameter of how far training moved it from its start.
+# The geometric middle of the sound runs' largest reading (4.5e-4) and the
+# control's smallest (7.7e-2) on the H100, as PERF.md records.
+MOVE_TOL = 6e-3
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _children(label, argvs, envs, code=CHILD):
+    """Run the port's CLI in one child process per argv, all at once, each
+    with its environment -> (wall seconds of the lot, [launches of each]).
+    Raises if a child fails; kills every child still running on the way
+    out."""
+    t = time.monotonic()
+    procs = []
+    try:
+        for argv, env in zip(argvs, envs):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code] + argv, env=env, cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        outs = [p.communicate(timeout=CHILD_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.monotonic() - t
+    counts = []
+    for i, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{label}: child {i} exited "
+                                 f"{p.returncode}:\n{err[-3000:]}")
+        last = [l for l in out.splitlines() if l.startswith('{"launches"')]
+        counts.append(json.loads(last[-1])["launches"])
+    return wall, counts
+
+
+def _child_env(extra=None):
+    env = {k: v for k, v in os.environ.items() if not k.startswith("NSP_")}
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(extra or {})
+    return env
+
+
+def _moved_gap(got, want, init):
+    """How far two runs moved the parameters from the same start, held to
+    each other: -> (|dg - dw| / |dw| with L2 norms over all parameters,
+    the worst leaf's max|dg - dw| / max|dw|), where dg, dw are the runs'
+    last.ckpt minus `init`."""
+    from nanosnp_tpu_torch.models.convert import flatten_tree
+    from nanosnp_tpu_torch.train.train_pileup import load_checkpoint
+
+    start = dict(flatten_tree(init))
+    g, w = (dict(flatten_tree(load_checkpoint(p)[0])) for p in (got, want))
+    if not g.keys() == w.keys() == start.keys():
+        raise AssertionError("checkpoint leaves differ from the start's")
+    diff2 = norm2 = worst = 0.0
+    for path, x0 in start.items():
+        dg, dw = g[path] - x0, w[path] - x0
+        diff2 += float(((dg - dw).double() ** 2).sum())
+        norm2 += float((dw.double() ** 2).sum())
+        if dw.abs().max() > 0:
+            worst = max(worst, float((dg - dw).abs().max()
+                                     / dw.abs().max()))
+    if norm2 == 0:
+        raise AssertionError("training moved no parameter")
+    return (diff2 / norm2) ** 0.5, worst
+
+
+def phase_multihost(dev):
+    """Phase 4b, on phase 4's world and fitted model: `call --contigs chrT
+    chrC` in one process and as two hosts (two child processes on the
+    card, gloo over 127.0.0.1), the merged rows held to the one-process
+    rows byte for byte; then train-pileup and train-haplotype in one
+    process and data-parallel over two ranks on the card, how far each
+    moved the parameters held to the other, and a control without the
+    gradient average held to fail that check. Two processes share one card here, so
+    no time is a claim about several cards."""
+    import numpy as np
+    import torch
+
+    from nanosnp_tpu_torch.io.fasta import FastaReference
+    from nanosnp_tpu_torch.ops import bilstm as K
+    from nanosnp_tpu_torch.parallel.launch import plan_contig_shards
+    from nanosnp_tpu_torch.runtime import cli
+
+    ckpt = os.path.join(WORK, "pileup.chkpt")
+    if not os.path.exists(ckpt):
+        raise AssertionError("phase 4b runs on phase 4's world: run "
+                             "phase_call first")
+    card = _card()
+    log(f"[phase 4b] {card}")
+    dev_args = [] if dev.type == "cuda" else ["--device", "cpu"]
+    launches, rows = {}, {}
+    ref = os.path.join(WORK, "ref.fa")
+    call = ["call", "--bam", os.path.join(WORK, "sample.bam"), "--ref", ref,
+            "--pileup-model", ckpt, "--haplotype-model", V6B, "--phaser",
+            "native", "--contigs", "chrT", "chrC"] + dev_args
+
+    def timed(name, argv):
+        K.reset_launch_counts()
+        t = time.monotonic()
+        if cli.main(argv) != 0:
+            raise AssertionError(f"{name} failed")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        dt = time.monotonic() - t
+        launches[name] = dict(K.LAUNCHES)
+        log(f"[{name}] {dt:.3f} s, launches {launches[name]}")
+        return dt
+
+    # call: one process, then two hosts on the same card
+    single, multi = os.path.join(WORK, "mh_single"), os.path.join(WORK,
+                                                                 "mh_multi")
+    wall1 = timed("call x1", call + ["-o", single])
+    port = _free_port()
+    wall2, counts = _children("call x2", [
+        call + ["-o", multi, "--coordinator", f"127.0.0.1:{port}",
+                "--num-hosts", "2", "--host-id", str(h)] for h in range(2)],
+        [_child_env()] * 2)
+    for h, c in enumerate(counts):
+        launches[f"call x2 host{h}"] = c
+        log(f"[call x2 host{h}] launches {c}")
+    fasta = FastaReference(ref)
+    plan = plan_contig_shards({c: fasta.length(c) for c in ("chrT", "chrC")},
+                              2)
+    if [len(c) for c in plan] != [1, 1]:
+        raise AssertionError(f"LPT plan {plan}")
+    split = {}
+    for h in range(2):
+        host = os.path.join(multi, f"host{h}")
+        got = sorted({r[0] for r in _body(os.path.join(host, "pileup.vcf"))})
+        if got != plan[h]:
+            raise AssertionError(f"host {h} called {got}, plan {plan[h]}")
+        split[f"host{h}"] = {st: m["seconds"]
+                             for st, m in _stage_markers(host).items()}
+    same = {}
+    for name in ("pileup.vcf", "haplotype.csv", "merge.vcf"):
+        want = _body(os.path.join(single, name))
+        got = _body(os.path.join(multi, name))
+        if not want or got != want:
+            diff = next((i for i, (a, b) in enumerate(zip(got, want))
+                         if a != b), min(len(got), len(want)))
+            raise AssertionError(
+                f"call x2 {name}: {len(got)} rows against {len(want)}, "
+                f"first difference at row {diff}")
+        same[name] = len(want)
+    rows["call x2"] = dict(
+        card=card, one_process_wall_seconds=wall1,
+        one_process_stage_seconds={st: m["seconds"] for st, m in
+                                   _stage_markers(single).items()},
+        two_hosts_wall_seconds=wall2, host_stage_seconds=split,
+        contigs={f"host{h}": plan[h] for h in range(2)},
+        byte_identical_rows=same)
+    log("[call x2] " + json.dumps(rows["call x2"]))
+
+    # data-parallel training: one process, then two ranks on the card
+    rng = np.random.default_rng(SEED + 7)
+    hap_work = os.path.join(WORK, "dp_hap")
+    os.makedirs(hap_work)
+    hap_shards = _haplotype_train_world(rng, hap_work)
+    cfg = os.path.join(WORK, "dp.yaml")
+    with open(cfg, "w") as f:
+        f.write("pileup_model:\n  dropout: 0.0\n"
+                "haplotype_model:\n  dropout: 0.0\n")
+    from nanosnp_tpu_torch.config import load_config
+    from nanosnp_tpu_torch.models.haplotype_model import \
+        init_haplotype_params
+    from nanosnp_tpu_torch.models.pileup_model import init_pileup_params
+
+    # the start both trainers draw from the seed, as the CLI runs them
+    dp_cfg = load_config(cfg)
+    start = {
+        "train-pileup": init_pileup_params(
+            torch.Generator().manual_seed(dp_cfg.train.seed),
+            dp_cfg.pileup_model),
+        "train-haplotype": init_haplotype_params(
+            torch.Generator().manual_seed(dp_cfg.train.seed),
+            dp_cfg.haplotype_model)}
+    for name, argv, epochs, dw in (
+            ("train-pileup", [
+                "train-pileup", "--data", os.path.join(WORK, "out",
+                                                       "train_data"),
+                "--batch-size", "2000"], 2, False),
+            ("train-haplotype", [
+                "train-haplotype", "--shards", hap_shards, "--ref",
+                os.path.join(hap_work, "ref.fa"), "--truth-vcf",
+                os.path.join(hap_work, "truth.vcf"), "--bed",
+                os.path.join(hap_work, "conf.bed"), "--batch-size", "512"],
+             1, True)):
+        argv = argv + ["--config", cfg, "--epochs", str(epochs),
+                       "--val-fraction", "0.1"] + dev_args
+        one, two, bad = (os.path.join(WORK, f"{name}_{k}")
+                         for k in ("x1", "x2", "x2_no_mean"))
+        wall1 = timed(f"{name} x1", argv + ["-o", one])
+
+        def two_ranks(label, out, code):
+            port = _free_port()
+            return _children(label, [argv + ["-o", out]] * 2, [
+                _child_env({"NSP_COORDINATOR": f"127.0.0.1:{port}",
+                            "NSP_NUM_PROCS": "2", "NSP_PROC_ID": str(r)})
+                for r in range(2)], code)
+
+        wall2, counts = two_ranks(f"{name} x2", two, CHILD)
+        # the control: the same two ranks, each skipping the average (its
+        # launches are not the path's)
+        two_ranks(f"{name} x2 control", bad, CHILD_NO_MEAN)
+        run = name.replace("train-", "") + "_train"
+        recs = _train_records(os.path.join(two, run), epochs)
+        steps = recs[-1]["step"]
+        for other in (one, bad):
+            if steps != _train_records(os.path.join(other, run),
+                                       epochs)[-1]["step"]:
+                raise AssertionError(f"{name}: the runs took other steps")
+        want = os.path.join(one, run, "last.ckpt")
+        gap, leaf = _moved_gap(os.path.join(two, run, "last.ckpt"), want,
+                               start[name])
+        bad_gap, bad_leaf = _moved_gap(os.path.join(bad, run, "last.ckpt"),
+                                       want, start[name])
+        for r, c in enumerate(counts):
+            launches[f"{name} x2 rank{r}"] = c
+            log(f"[{name} x2 rank{r}] launches {c}")
+        rows[f"{name} x2"] = dict(
+            card=card, steps=steps, one_process_seconds=wall1,
+            two_ranks_seconds=wall2, moved_gap=gap, moved_gap_worst_leaf=leaf,
+            control_moved_gap=bad_gap, control_moved_gap_worst_leaf=bad_leaf,
+            final_train_loss=recs[-2]["loss"])
+        log(f"[check] {name}: two ranks against one process, "
+            f"|moved_2 - moved_1| / |moved_1| over all parameters {gap:.3e} "
+            f"(worst leaf max|d| / max|moved_1| {leaf:.3e}); the control "
+            f"without the gradient average {bad_gap:.3e} ({bad_leaf:.3e}); "
+            f"tol {MOVE_TOL}")
+        log(f"[{name} x2] " + json.dumps(rows[f"{name} x2"]))
+        if not gap <= MOVE_TOL:
+            raise AssertionError(f"{name}: two ranks disagree with one "
+                                 f"process: {gap}")
+        if not bad_gap > MOVE_TOL:
+            raise AssertionError(f"{name}: the check passes ranks that skip "
+                                 f"the gradient average: {bad_gap}")
+        for r, c in enumerate(counts):
+            for k in ("lstm_recurrence_train", "lstm_recurrence_bwd") + (
+                    ("lstm_dw_reduce",) if dw else ()):
+                if dev.type == "cuda" and c[k] <= 0:
+                    raise AssertionError(f"{name} rank {r}: {k} was never "
+                                         "launched")
+    for h in range(2):
+        for k in ("bilstm_stream", "bilstm_center", "bilstm_inproj",
+                  "bilstm_cluster"):
+            if dev.type == "cuda" and launches[f"call x2 host{h}"][k] <= 0:
+                raise AssertionError(f"call x2 host {h} never launched {k}")
     shutil.rmtree(WORK, ignore_errors=True)
     return launches, rows
 
@@ -2711,7 +3000,7 @@ def main() -> int:
     log(f"[phase 1d] {time.monotonic() - t0:.1f} s")
     for label, phase in (("2", phase_slice), ("2b", phase_routes),
                          ("2c", phase_legacy), ("3", phase_train),
-                         ("4", phase_call)):
+                         ("4", phase_call), ("4b", phase_multihost)):
         t0 = time.monotonic()
         phase_launches, phase_rows = phase(dev)
         launches.update(phase_launches)

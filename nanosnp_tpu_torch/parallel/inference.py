@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from .mesh import pad_to_multiple
 
 
 class BatchedPredictor:
@@ -67,9 +68,7 @@ class BatchedPredictor:
             chunk = [a[start: start + bs] for a in arrays]
             m = chunk[0].shape[0]
             if m < bs:   # tail: pad to the full batch with zero rows
-                chunk = [np.concatenate(
-                    [c, np.zeros((bs - m,) + c.shape[1:], c.dtype)])
-                    for c in chunk]
+                chunk = [pad_to_multiple(c, bs)[0] for c in chunk]
             pending.append((m, self.apply(*chunk)))
             while len(pending) > self.MAX_IN_FLIGHT:
                 drain_one()

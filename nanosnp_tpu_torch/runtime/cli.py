@@ -4,7 +4,7 @@ Commands ported so far (same flags as the JAX package's CLI, plus
 `--device`: cuda by default; cpu runs the kernels' plain versions, and the
 trainers the f32 path, as the JAX trainer does off the TPU):
 
-  call             the pipeline end to end on one host: s1 pileup features
+  call             the pipeline end to end: s1 pileup features
                    (BAM or mpileup) -> s2 pileup model -> s3 phasing ->
                    s4 haplotype features -> s5 haplotype model -> s6 merge,
                    with `.done` markers for resume
@@ -31,9 +31,13 @@ trainers the f32 path, as the JAX trainer does off the TPU):
                    (host only, no --device)
 
 `make-train-data --h5` also writes each contig's reference-layout HDF5
-train bin, which needs h5py. Multi-host `call` (`--num-hosts` above 1) is
-not ported yet. s5 has no subcommand (the JAX CLI has none either): it
-runs through `runtime.stages.stage_haplotype_predict`.
+train bin, which needs h5py. `call --num-hosts N --coordinator HOST:PORT
+--host-id I` runs one process a host (one a GPU, parallel/launch.py): each
+works its LPT share of the contigs in OUT/host{I}, host 0 merges the
+outputs into OUT. `train-pileup` and `train-haplotype` train data-parallel
+over the ranks that NSP_COORDINATOR / NSP_NUM_PROCS / NSP_PROC_ID describe.
+s5 has no subcommand (the JAX CLI has none either): it runs through
+`runtime.stages.stage_haplotype_predict`.
 """
 from __future__ import annotations
 
@@ -195,6 +199,7 @@ def _run_train_haplotype(args, cfg) -> int:
     import numpy as np
 
     from ..io.bins import list_shards, open_npz
+    from ..parallel.launch import barrier, host_plan
     from ..train import data as D
     from ..train.train_haplotype import train_haplotype
     from . import evaluate as E
@@ -213,10 +218,13 @@ def _run_train_haplotype(args, cfg) -> int:
     rng = np.random.default_rng(tcfg.seed)
     paths = list_shards(args.shards)
     # row-level reshard: consolidated s4 shards are one file per
-    # (contig, depth bucket), far too coarse for a file-level split
+    # (contig, depth bucket), far too coarse for a file-level split. In a
+    # data-parallel run rank 0 writes it and the others read its copies.
+    rank = host_plan().host_id
     train_paths, val_paths = D.reshard_train_val(
         paths, os.path.join(args.output, "haplotype_split"),
-        tcfg.val_fraction, rng)
+        tcfg.val_fraction, rng, write=rank == 0)
+    barrier("nsp_train_split")
     # lr-decay schedule hint: candidate count from shard metadata
     n_sites = sum(len(open_npz(p)["candidate_positions"])
                   for p in train_paths)
@@ -780,20 +788,62 @@ def resolve_contigs(requested, ref) -> list:
 
 
 def _run_call(args, cfg) -> int:
-    """`call` on one host, as the JAX package's `_run_call`: the stage
-    graph under a PipelineRunner with `.done` resume. s2 and s5 run on
-    `--device`; while s1 (and s3, s4) run on the host, background threads
-    get the card, the kernels' library and the weights ready."""
-    n_hosts = args.num_hosts if args.num_hosts is not None \
-        else int(os.environ.get("NSP_NUM_PROCS", "1"))
-    if n_hosts > 1:
-        raise NotImplementedError(
-            "multi-host `call` (--num-hosts > 1) is not ported yet: "
-            "ROADMAP.md A.6")
-    device = resolve_device(args.device)
+    """`call`, as the JAX package's `_run_call`: the stage graph under a
+    PipelineRunner with `.done` resume. s2 and s5 run on `--device`; while
+    s1 (and s3, s4) run on the host, background threads get the card, the
+    kernels' library and the weights ready.
+
+    Across hosts every host computes the same LPT contig plan and runs the
+    stages on its own contigs in OUT/host{id} on its own device; then host
+    0 merges pileup.vcf, merge.vcf and haplotype.csv into OUT. A host whose
+    stage raises fails `call` on every host (parallel/launch.all_hosts)."""
+    from ..parallel.launch import (all_hosts, initialize_distributed,
+                                   local_device, merge_host_csvs,
+                                   merge_host_vcfs, shutdown)
+
+    plan = initialize_distributed(args.coordinator, args.num_hosts,
+                                  args.host_id)
+    try:
+        with all_hosts("nsp_call_gather"):
+            runner = _run_call_host(args, cfg, plan, local_device(
+                plan, args.device))
+        if plan.n_hosts > 1:
+            # host 0 gathers the final artifacts in global contig order
+            # (reference: file concatenation of per-contig outputs; here
+            # sortvcf.py-ordered merge)
+            with all_hosts("nsp_call_done"):
+                if plan.host_id == 0:
+                    host_dirs = [os.path.join(args.output, f"host{h}")
+                                 for h in range(plan.n_hosts)]
+                    for name, merge_fn in (
+                            ("pileup.vcf", merge_host_vcfs),
+                            ("merge.vcf", merge_host_vcfs),
+                            ("haplotype.csv", merge_host_csvs)):
+                        paths = [os.path.join(d, name) for d in host_dirs
+                                 if os.path.exists(os.path.join(d, name))]
+                        if paths:
+                            n = merge_fn(paths, os.path.join(args.output,
+                                                             name))
+                            runner.log.info("gathered %s: %d rows from %d "
+                                            "hosts", name, n, len(paths))
+    finally:
+        shutdown()
+    return 0
+
+
+def _run_call_host(args, cfg, plan, device) -> PipelineRunner:
+    """This host's share of `call`: its contigs, in its work dir."""
+    from ..parallel.launch import host_contigs
+
     ref = FastaReference(args.ref)
     contigs = resolve_contigs(args.contigs, ref)
     work_dir = args.output
+    if plan.n_hosts > 1:
+        # deterministic LPT contig fan-out over hosts (each host computes
+        # the same plan; the reference's GNU-parallel chromosome fan-out at
+        # process level, scripts/s3_phasing_long_reads.sh:35-69)
+        contigs = host_contigs(plan, {c: ref.length(c) for c in contigs})
+        work_dir = os.path.join(args.output, f"host{plan.host_id}")
     os.makedirs(work_dir, exist_ok=True)
     runner = PipelineRunner(work_dir)
     shard_dir = os.path.join(work_dir, "pileup_shards")
@@ -952,10 +1002,10 @@ def _run_call(args, cfg) -> int:
         runner.run(stage_list, resume=not args.no_resume)
     finally:
         # a thread no stage waited for (its stage was skipped, or an
-        # earlier one failed) is joined here; its error is re-raised
-        # unless one is already on its way up
+        # earlier one failed) is joined here, before any barrier; its
+        # error is re-raised unless one is already on its way up
         stages.join_prewarm_threads()
-    return 0
+    return runner
 
 
 def main(argv=None) -> int:
@@ -999,9 +1049,13 @@ def main(argv=None) -> int:
                         "whole-read admission incl. the coverage-spike "
                         "shadow (samtools --max-depth behavior). See "
                         "PileupFeatureConfig.depth_mode")
+    p.add_argument("--coordinator", default=None,
+                   help="multi-host: coordinator address host:port "
+                        "(or env NSP_COORDINATOR)")
     p.add_argument("--num-hosts", type=int, default=None,
-                   help="multi-host: total process count (or NSP_NUM_PROCS); "
-                        "above 1 is not ported yet")
+                   help="multi-host: total process count (or NSP_NUM_PROCS)")
+    p.add_argument("--host-id", type=int, default=None,
+                   help="multi-host: this process's id (or NSP_PROC_ID)")
     _add_device(p)
 
     p = sub.add_parser("s1-features", help="mpileup -> pileup shards")
@@ -1140,10 +1194,17 @@ def main(argv=None) -> int:
             os.path.join(args.output, "pileup_shards"), args.contigs)
         print(m)
         return 0
-    if args.cmd == "train-pileup":
-        return _run_train_pileup(args, cfg)
-    if args.cmd == "train-haplotype":
-        return _run_train_haplotype(args, cfg)
+    if args.cmd in ("train-pileup", "train-haplotype"):
+        # data-parallel over the ranks that NSP_* describe (the JAX
+        # trainers have no flag for it either)
+        from ..parallel.launch import initialize_distributed, shutdown
+
+        initialize_distributed()
+        try:
+            return (_run_train_pileup if args.cmd == "train-pileup"
+                    else _run_train_haplotype)(args, cfg)
+        finally:
+            shutdown()
     if args.cmd in _LEGACY:
         return _LEGACY[args.cmd](args, cfg)
     if args.cmd == "evaluate-pileup":

@@ -487,12 +487,16 @@ def reshard_train_val(
     out_dir: str,
     val_fraction: float = 0.1,
     rng: Optional[np.random.Generator] = None,
+    write: bool = True,
 ) -> Tuple[List[str], List[str]]:
     """Row-level train/val split of haplotype shards.
 
     The consolidated s4 output is one shard per (contig, depth bucket), so
     a file-level split (reference train.py:176-181) is too coarse — this
-    splits every shard's rows 90/10 into <out_dir>/{train,val}/ copies."""
+    splits every shard's rows 90/10 into <out_dir>/{train,val}/ copies.
+    With write=False it draws from `rng` and returns the paths alike but
+    writes nothing (the other ranks of a data-parallel run, which read
+    rank 0's copies)."""
     import os as _os
 
     from ..io import bins as _bins
@@ -500,8 +504,9 @@ def reshard_train_val(
     rng = rng or np.random.default_rng()
     train_dir = _os.path.join(out_dir, "train")
     val_dir = _os.path.join(out_dir, "val")
-    _os.makedirs(train_dir, exist_ok=True)
-    _os.makedirs(val_dir, exist_ok=True)
+    if write:
+        _os.makedirs(train_dir, exist_ok=True)
+        _os.makedirs(val_dir, exist_ok=True)
 
     def slice_shard(shard, idx):
         return _bins.HaplotypeShard(
@@ -524,11 +529,14 @@ def reshard_train_val(
             n_val = max(n_val, 1)
         name = _os.path.basename(p)
         tp = _os.path.join(train_dir, name)
-        _bins.save_haplotype_shard(tp, slice_shard(shard, perm[n_val:]))
+        if write:
+            _bins.save_haplotype_shard(tp, slice_shard(shard, perm[n_val:]))
         train_paths.append(tp)
         if n_val:
             vp = _os.path.join(val_dir, name)
-            _bins.save_haplotype_shard(vp, slice_shard(shard, perm[:n_val]))
+            if write:
+                _bins.save_haplotype_shard(vp, slice_shard(shard,
+                                                           perm[:n_val]))
             val_paths.append(vp)
     return train_paths, val_paths
 

@@ -15,6 +15,15 @@ validation splits into scalars.jsonl; epoch_{n}.ckpt; best.ckpt on the
 validation gt macro-F1; at the end last.ckpt with the optimizer state.
 Checkpoints are the JAX trainer's pickle layout ({"params": numpy tree,
 "step", "epoch"}), so its load_checkpoint reads them.
+
+Data-parallel when the caller has joined a process group of several ranks
+(the CLI does, from NSP_COORDINATOR, NSP_NUM_PROCS, NSP_PROC_ID, through
+parallel/launch.initialize_distributed), the counterpart of the JAX
+trainer's mesh: one rank a device, every rank iterating the same
+global batches and training on its `shard_rows` slice, parameters
+broadcast from rank 0 once, gradients averaged over ranks before each
+update, epoch meters summed over ranks; every rank validates on the whole
+set, and rank 0 alone writes files.
 """
 from __future__ import annotations
 
@@ -29,11 +38,14 @@ import torch
 from torch import nn
 
 from ..config import PileupModelConfig, TrainConfig
-from ..device import resolve_device, set_matmul_precision
+from ..device import set_matmul_precision
 from ..models.convert import (flatten_tree, load_params_npz, params_from_jax,
                               params_to_numpy, save_params_npz,
                               unflatten_like)
 from ..models.pileup_model import PileupModel, init_pileup_params
+from ..parallel.launch import barrier, host_plan, local_device
+from ..parallel.mesh import (all_reduce_mean, all_reduce_sum,
+                             broadcast_params, shard_rows, world)
 from .losses import label_smoothing_loss
 from .metrics import ConfusionAccumulator, MetricsLogger
 from .optim import Optimizer, build_optimizer
@@ -80,11 +92,12 @@ def apply_gradients(state: TrainState, tx: Optimizer, loss: torch.Tensor,
                     is_frozen, freeze_on: float) -> None:
     """Gradients of `loss` with respect to the fast params (zero for a
     leaf the loss does not reach, such as the unused indel heads, as
-    jax.grad gives), then one optimizer update in place."""
+    jax.grad gives), averaged over the ranks of a data-parallel run, then
+    one optimizer update in place."""
     flat = flatten_tree(state.model.tree())
     params = [p for _, p in flat]
-    grads = torch.autograd.grad(loss, params, allow_unused=True,
-                                materialize_grads=True)
+    grads = all_reduce_mean(torch.autograd.grad(
+        loss, params, allow_unused=True, materialize_grads=True))
     scales = [1.0 - freeze_on if is_frozen(path) else 1.0 for path, _ in flat]
     slow = None if state.slow is None else [
         p for _, p in flatten_tree(state.slow)]
@@ -158,6 +171,20 @@ class EpochMeter:
         out.update(self.zy.summary("zy_"))
         return out
 
+    def all_reduce(self) -> None:
+        """Make each rank's meter the global batches' in a data-parallel
+        run: the confusion counts summed over ranks, the loss sum averaged
+        (each rank's loss is its slice's mean, and the slices are equal)."""
+        if world() <= 1:
+            return
+        loss, gt, zy = all_reduce_sum([
+            torch.tensor([self.loss_sum], dtype=torch.float64),
+            torch.from_numpy(self.gt.matrix).double(),
+            torch.from_numpy(self.zy.matrix).double()])
+        self.loss_sum = float(loss) / world()
+        self.gt.matrix = gt.numpy().astype(np.int64)
+        self.zy.matrix = zy.numpy().astype(np.int64)
+
 
 def _host(a) -> np.ndarray:
     return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
@@ -167,31 +194,50 @@ class Trainer:
     """What train_pileup and train_haplotype share: device, state,
     dropout generator, epoch bookkeeping, validation and checkpoints. A
     subclass supplies the model-specific parts: `run_step`, `run_eval` and
-    `labels`."""
+    `labels`.
+
+    In a data-parallel run (a process group of several ranks) the rank
+    trains on its slice of each global batch on its own device; rank 0
+    alone writes, and every rank waits for it at each epoch's end."""
 
     def __init__(self, name, model_cls, mcfg, tcfg, init_params, device,
                  use_kernels, steps_per_epoch, lr_steps_per_epoch, out_dir,
                  resume_from, log_every):
-        self.dev = resolve_device(device)      # raises before any write
+        plan = host_plan()                     # the caller's group, if any
+        self.rank, self.world = plan.host_id, plan.n_hosts
+        self.dev = local_device(plan, device)  # raises before any write
+        if tcfg.batch_size % self.world:       # so does this
+            raise ValueError(f"batch size {tcfg.batch_size} not divisible "
+                             f"by {self.world} data-parallel ranks")
         set_matmul_precision()
         self.name, self.mcfg, self.tcfg = name, mcfg, tcfg
         self.out_dir, self.log_every = out_dir, log_every
         self.use_kernels = (self.dev.type == "cuda" if use_kernels is None
                             else bool(use_kernels))
-        os.makedirs(out_dir, exist_ok=True)
         self.tx = build_optimizer(tcfg.optim,
                                   steps_per_epoch or lr_steps_per_epoch or 1000)
-        self.state = init_state(model_cls(mcfg, init_params).to(self.dev),
-                                self.tx)
-        self.generator = torch.Generator(device=self.dev).manual_seed(
-            tcfg.seed)
+        model = model_cls(mcfg, init_params).to(self.dev)
+        broadcast_params([p for _, p in flatten_tree(model.tree())])
+        self.state = init_state(model, self.tx)
+        # each rank its own dropout masks: seeded from (seed, rank)
+        seed = tcfg.seed if self.world == 1 else int(np.random.SeedSequence(
+            [tcfg.seed, self.rank]).generate_state(1)[0])
+        self.generator = torch.Generator(device=self.dev).manual_seed(seed)
         if resume_from:
-            _restore(self.state, resume_state(resume_from), self.generator)
+            # the saved generator is one rank's: ranks of a data-parallel
+            # run keep their own seeds
+            _restore(self.state, resume_state(resume_from),
+                     self.generator if self.world == 1 else None)
         from ..utils.profiling import count_parameters
 
-        print(f"[{name}] model parameters: "
-              f"{count_parameters(self.state.model.tree()):,}")
-        self.logger = MetricsLogger(out_dir)
+        self.logger = None
+        if self.rank == 0:
+            os.makedirs(out_dir, exist_ok=True)
+            self.logger = MetricsLogger(out_dir)
+            print(f"[{name}] model parameters: "
+                  f"{count_parameters(self.state.model.tree()):,}"
+                  + (f", {self.world} data-parallel ranks"
+                     if self.world > 1 else ""))
         self.meter = EpochMeter(mcfg.gt_num_class, mcfg.zy_num_class)
         self.best_metric = float("-inf")
         self.freeze = 0.0
@@ -210,12 +256,16 @@ class Trainer:
         raise NotImplementedError
 
     def step(self, batch) -> None:
+        if self.world > 1:
+            batch = _rows(batch, shard_rows(
+                len(batch["gt"] if isinstance(batch, dict) else batch[0]),
+                self.rank, self.world))
         metrics = self.run_step(batch, self.freeze)
         self.state.step += 1
         gt_true, zy_true = self.labels(batch)
         self.meter.update(metrics["loss"], metrics["gt_pred"], gt_true,
                           metrics["zy_pred"], zy_true)
-        if self.state.step % self.log_every < 1:
+        if self.state.step % self.log_every < 1 and self.rank == 0:
             dt = time.monotonic() - self.t0
             print(f"[{self.name}] step {self.state.step} "
                   f"loss {float(metrics['loss']):.4f} "
@@ -235,20 +285,26 @@ class Trainer:
             vm.update(loss, gtp, gtt, zyp, zyt)
         return vm.scalars() if vm.batches else None
 
+    def _save(self, name: str, **kw) -> None:
+        if self.rank == 0:
+            save_checkpoint(os.path.join(self.out_dir, name), self.state, **kw)
+
     def end_epoch(self, val_iter_factory, eval_fn) -> None:
         st = self.state
         st.epoch += 1
+        self.meter.all_reduce()
         train_scalars = self.meter.scalars()
-        self.logger.log(st.epoch, "train", train_scalars, step=st.step)
         val_scalars = self.validate(val_iter_factory)
-        if val_scalars is not None:
-            self.logger.log(st.epoch, "val", val_scalars, step=st.step)
-        print(f"[{self.name}] epoch {st.epoch}: train {train_scalars}"
-              + (f" val {val_scalars}" if val_scalars else ""))
+        if self.logger is not None:
+            self.logger.log(st.epoch, "train", train_scalars, step=st.step)
+            if val_scalars is not None:
+                self.logger.log(st.epoch, "val", val_scalars, step=st.step)
+            print(f"[{self.name}] epoch {st.epoch}: train {train_scalars}"
+                  + (f" val {val_scalars}" if val_scalars else ""))
         self.meter = EpochMeter(self.mcfg.gt_num_class, self.mcfg.zy_num_class)
-        save_checkpoint(os.path.join(self.out_dir, f"epoch_{st.epoch}.ckpt"),
-                        st)
-        # best-metric retention (reference train_dev.py:258-281)
+        self._save(f"epoch_{st.epoch}.ckpt")
+        # best-metric retention (reference train_dev.py:258-281); every
+        # rank decides the same, having validated on the same set
         metric = None
         if eval_fn is not None:
             metric = float(eval_fn(st))
@@ -256,15 +312,24 @@ class Trainer:
             metric = val_scalars["gt_macro_f1"]
         if metric is not None and metric > self.best_metric:
             self.best_metric = metric
-            save_checkpoint(os.path.join(self.out_dir, "best.ckpt"), st)
+            self._save("best.ckpt")
         if self.tcfg.first_stage is not None \
                 and st.epoch >= self.tcfg.first_stage:
             self.freeze = 1.0
+        barrier("nsp_train_epoch")
 
     def finish(self) -> TrainState:
-        save_checkpoint(os.path.join(self.out_dir, "last.ckpt"), self.state,
-                        include_optimizer=True, generator=self.generator)
+        self._save("last.ckpt", include_optimizer=True,
+                   generator=self.generator)
+        barrier("nsp_train_done")
         return self.state
+
+
+def _rows(batch, rows: slice):
+    """Those rows of a host batch: a tuple of arrays or a dict of them."""
+    if isinstance(batch, dict):
+        return {k: v[rows] for k, v in batch.items()}
+    return tuple(a[rows] for a in batch)
 
 
 class _PileupTrainer(Trainer):

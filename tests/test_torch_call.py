@@ -348,10 +348,11 @@ def test_make_train_data_equals_jax_cli(world):
 
 
 def test_call_refusals(world, tmp_path):
-    """What `call` does not do, it says: more than one host is not ported;
+    """What `call` does not do, it says: more than one host without a
+    coordinator and a host id (test_torch_multihost.py runs two hosts);
     whatshap is not installed, so that phaser raises as the reference
     does; and the card is the default device, which raises without one."""
-    with pytest.raises(NotImplementedError, match="A.6"):
+    with pytest.raises(ValueError, match="coordinator"):
         torch_main(call_args(world, tmp_path / "mh")
                    + ["--device", "cpu", "--num-hosts", "2"])
     args = [a if a != "native" else "whatshap"
