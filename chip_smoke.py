@@ -69,23 +69,35 @@
            card, its probabilities against the kernel path's plain version
            on the CPU on a small input, then a few legacy-train steps.
   phase 3  trains both models through the CLI at full width: train-pileup
-           on 40k labeled windows (batch 2000) and train-haplotype on 4k
+           on 40k labeled windows (batch 2000) and train-haplotype on 10k
            sites in depth buckets 64 and 96 with a truth VCF (batch 512),
-           2 epochs each with validation. Launch counts are zeroed before
-           each and read after (train-pileup must launch no
-           `lstm_dw_reduce`); losses must be finite, checkpoints written,
-           and the trained pileup checkpoint must load and predict.
+           2 epochs each with validation, in groups of the default
+           steps_per_call 8 (train/group.py): each batch shape's full
+           groups must replay a CUDA graph after its first, and each
+           training kernel be counted once a step a layer, replays
+           included (train-pileup launches no `lstm_dw_reduce`). Launch
+           counts are zeroed before each and read after; each graph's
+           capture seconds and pool bytes are printed; losses must be
+           finite, checkpoints written, and the trained pileup
+           checkpoint must load and predict.
            `evaluate-haplotype` (CLI) on the training world's shards with
            the v6b weights and with the trained last.ckpt (`bilstm_inproj`
            and `bilstm_cluster` launched), its first shard's argmax
            decisions on the card against the CPU's (at least 99% agree).
-           One epoch each of train-pileup with `optim.type: ranger` and
-           train-haplotype with `ranger21` (the training kernels launched,
-           losses finite). Then one full-width pileup step's gradients on
-           the card are held against the plain versions on the CPU, and
-           steady-state steps of both trainers, with Lookahead-Adam and
-           with their Ranger flavor, are timed and profiled
-           (torch.profiler).
+           Two epochs each of train-pileup with `optim.type: ranger` and
+           train-haplotype with `ranger21` (the same checks). Then one
+           full-width pileup step's gradients on the card are held
+           against the plain versions on the CPU; for both trainers, with
+           Lookahead-Adam and their Ranger flavor, dropout 0 and on, three
+           groups of 8 steps (eager, captured and replayed, replayed)
+           against the same 24 single eager steps from the same seeded
+           state: parameters, slow parameters and optimizer state the
+           same bits (or within REPLAY_TOL, printed), the dropout
+           generators' states equal; last, steady-state steps of both
+           trainers and flavors as single steps and as groups of 8 are
+           timed in turns and profiled (torch.profiler; a replay's
+           training kernels counted by name in the trace against the
+           launch counts).
   phase 4  `call` end to end from a BAM at full model width. Writes a
            diploid world (a training and a calling contig, 30x reads in one
            untagged BAM, truth VCF, BED); then, all through the CLI on the
@@ -113,18 +125,22 @@
            one-process rows byte for byte. Then train-pileup (batch 2000,
            2 epochs on phase 4's training arrays) and train-haplotype
            (batch 512, 1 epoch), dropout 0, in one process and over two
-           data-parallel ranks (children with NSP_* set): how far each
-           run moved the parameters from their seeded start, the two
-           held to each other within MOVE_TOL (L2 over all parameters),
-           and a control whose ranks skip the gradient average held
-           outside it; the training kernels launched in each rank. Prints both wall times and each host's
+           data-parallel ranks (children with NSP_* set), in groups of 2
+           steps: how far each run moved the parameters from their
+           seeded start, the two held to each other within MOVE_TOL (L2
+           over all parameters), and a control whose ranks skip the
+           gradient average held outside it; the training kernels
+           launched in each rank, each rank's full groups run as eager
+           steps (no graph holds gloo's average) and the one process's
+           replayed. Prints both wall times and each host's
            stage split beside the card's line; two processes share one
            card, so no time is a claim.
 
 `python3 chip_smoke.py --train-times TREE` times the training kernels
-alone and through their wrappers and profiles both trainers' steps, with
-the package of TREE; `--train-turns PARENT` does so for PARENT and this
-tree in turns, parent, change, change, parent. `--fused-times TREE` and
+alone and through their wrappers and profiles both trainers' steps
+(single steps, and groups of 8 by graph replay where TREE's package
+groups steps), with the package of TREE; `--train-turns PARENT` does so
+for PARENT and this tree in turns, parent, change, change, parent. `--fused-times TREE` and
 `--fused-turns PARENT` do the same for the two fused kernels and the
 per-layer kernels of their routes, and `--probe-times TREE` and
 `--probe-turns PARENT` for the probe's four modes and `bilstm_stream`.
@@ -170,7 +186,10 @@ CONTIG_LEN = 3_000_000  # a few-Mbp contig at 30x ...
 N_CAND = 100_000        # ... gives ~100k candidates: 13 batches of 8192
 HAP_SITES = 8000        # haplotype sites in each of two depth buckets
 PILEUP_TRAIN_ROWS = 40_000   # 18 steps of 2000 a epoch after the 10% split
-HAP_TRAIN_SITES = 2000       # haplotype training sites per depth bucket
+HAP_TRAIN_SITES = 5000       # haplotype training sites per depth bucket:
+                             # about ten batches of 512 a bucket an epoch,
+                             # so each fills a group of 8 steps every epoch
+DP_HAP_SITES = 2000          # the same for phase 4b's data-parallel runs
 ROUTE_CAND = 24_000     # s2 candidates of the route comparison: 3 batches
 # a fused route against the default route, row by row: the same call, and
 # QUAL (a log-odds of a probability, rounded to 0.01) within 0.02; rows
@@ -180,8 +199,11 @@ ROUTE_ROWS_OFF = 1e-3
 LEGACY_GROUPS = 16_384  # legacy groups a tag: two predict batches of 8192
 LEGACY_TRAIN_GROUPS = 1024   # of them, the part legacy-train sees
 GRAD_N = 256            # batch of the card-vs-CPU gradient check
-PROFILE_STEPS = 5       # training steps profiled, per model and optimizer
-TIME_STEPS = 20         # training steps timed on the host clock, likewise
+GROUP = 8               # the CLI's steps_per_call: steps a timed run, a
+                        # profiled run and a replay-parity group take
+TIME_RUNS = 3           # runs of GROUP steps timed in each turn
+REPLAY_TOL = 1e-6       # graph replay against eager steps, relative, should
+                        # a library GEMM not give the same bits under capture
 AGREE_MIN = 0.99        # evaluate-*: share of argmax decisions, card vs CPU
 # gradients of one step, card vs CPU, over the largest entry of each leaf:
 # both sides round h_{t-1}, dgates and dW to bf16, so a reordered f32 sum
@@ -212,6 +234,65 @@ CALL_STAGES = ("s1_pileup_features", "s2_pileup_predict", "s3_phasing",
 
 def log(*a):
     print(*a, flush=True)
+
+
+class _Tee:
+    """stdout as it is, and a copy of what was written."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _groups_record(text):
+    """The last `{"train_groups": ...}` line a trainer printed, or None."""
+    recs = [json.loads(line)["train_groups"] for line in text.splitlines()
+            if line.startswith('{"train_groups"')]
+    return recs[-1] if recs else None
+
+
+def _cli_train(argv):
+    """A train-* command through the port's CLI in this process -> the
+    trainer's record of its group routes (steps a route, graphs)."""
+    import contextlib
+
+    from nanosnp_tpu_torch.runtime import cli
+
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        if cli.main(argv) != 0:
+            raise AssertionError(f"{argv[0]} failed")
+    rec = _groups_record("".join(tee.parts))
+    if rec is None:
+        raise AssertionError(f"{argv[0]}: no train_groups record")
+    return rec
+
+
+def _check_groups(name, rec, launches, layers, dw, graphs):
+    """A training command's group routes and launch counts: `graphs`
+    shapes captured and some steps replayed, and each training kernel's
+    wrapper counted once a step a layer (`lstm_dw_reduce` only where
+    `dw`), replays included."""
+    steps = sum(rec["steps"].values())
+    log(f"[{name}] steps by route {rec['steps']} at steps_per_call "
+        f"{rec['steps_per_call']}; graphs: " + json.dumps([
+            {k: g[k] for k in ("shapes", "capture_seconds", "pool_bytes")}
+            for g in rec["graphs"]]))
+    if len(rec["graphs"]) != graphs or rec["steps"]["graph"] <= 0:
+        raise AssertionError(f"{name}: {len(rec['graphs'])} graphs, "
+                             f"{rec['steps']['graph']} replayed steps")
+    want = {"lstm_recurrence_train": steps * layers,
+            "lstm_recurrence_bwd": steps * layers,
+            "lstm_dw_reduce": steps * layers if dw else 0}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{name}: launches {got}, want {want}")
 
 
 def cuda_time(fn, reps):
@@ -1744,9 +1825,10 @@ def _pileup_train_arrays(rng, n):
                                label[:, 22:24].any(1))
 
 
-def _haplotype_train_world(rng, work):
-    """A reference contig, haplotype shards in depth buckets 64 and 96, a
-    truth VCF with SNPs at about 40% of the sites, a BED over the contig."""
+def _haplotype_train_world(rng, work, sites=HAP_TRAIN_SITES):
+    """A reference contig, haplotype shards of `sites` sites in each of
+    the depth buckets 64 and 96, a truth VCF with SNPs at about 40% of the
+    sites, a BED over the contig."""
     import numpy as np
 
     from nanosnp_tpu_torch.io import bins
@@ -1757,7 +1839,7 @@ def _haplotype_train_world(rng, work):
     write_fasta(os.path.join(work, "ref.fa"), {"chr1": seq.tobytes().decode()})
     shard_dir = os.path.join(work, "hap_train_shards")
     os.makedirs(shard_dir)
-    pos = np.sort(rng.choice(np.arange(200, length - 200), 2 * HAP_TRAIN_SITES,
+    pos = np.sort(rng.choice(np.arange(200, length - 200), 2 * sites,
                              replace=False)).astype(np.int64)
     for i, depth in enumerate((64, 96)):
         centers = pos[i::2]
@@ -1860,7 +1942,8 @@ def phase_train(dev):
     import numpy as np
     import torch
 
-    from nanosnp_tpu_torch.config import (PileupModelConfig, PipelineConfig,
+    from nanosnp_tpu_torch.config import (HaplotypeModelConfig,
+                                          PileupModelConfig, PipelineConfig,
                                           TrainConfig)
     from nanosnp_tpu_torch.io.bins import list_shards
     from nanosnp_tpu_torch.io.fasta import FastaReference
@@ -1869,7 +1952,6 @@ def phase_train(dev):
                                                        init_pileup_params,
                                                        pileup_predict)
     from nanosnp_tpu_torch.ops import bilstm as K
-    from nanosnp_tpu_torch.runtime import cli
     from nanosnp_tpu_torch.runtime import evaluate as E
     from nanosnp_tpu_torch.train import data as D
     from nanosnp_tpu_torch.train.losses import label_smoothing_loss
@@ -1890,6 +1972,10 @@ def phase_train(dev):
 
     out = os.path.join(WORK, "out")
     launches, rows = {}, {}
+    # recurrence calls a training step: the pileup encoder's layers, both
+    # haplotype branches' layers
+    layers = {"train-pileup": PileupModelConfig().n_layers,
+              "train-haplotype": 2 * HaplotypeModelConfig().lstm_layers}
     for name, argv, batch in (
             ("train-pileup", ["train-pileup", "--data", data_dir,
                               "--batch-size", "2000"], 2000),
@@ -1902,7 +1988,8 @@ def phase_train(dev):
         K.reset_launch_counts()
         torch.cuda.synchronize()
         t = time.monotonic()
-        cli.main(argv + ["--epochs", "2", "--val-fraction", "0.1", "-o", out])
+        groups = _cli_train(argv + ["--epochs", "2", "--val-fraction", "0.1",
+                                    "-o", out])
         torch.cuda.synchronize()
         dt = time.monotonic() - t
         launches[name] = dict(K.LAUNCHES)
@@ -1913,17 +2000,14 @@ def phase_train(dev):
                           steps_per_s=steps / dt,
                           sites_per_s=steps * batch / dt,
                           final_train_loss=recs[-2]["loss"],
-                          final_val_loss=recs[-1]["loss"])
+                          final_val_loss=recs[-1]["loss"], groups=groups)
         log(f"[{name}] {dt:.3f} s, {steps} steps, launches {launches[name]}")
         log(f"[{name}] " + json.dumps(rows[name]))
-        for k in ("lstm_recurrence_train", "lstm_recurrence_bwd"):
-            if launches[name][k] <= 0:
-                raise AssertionError(f"{name}: {k} was never launched")
-        # H=64 sums dW inside the sweep; H=256 runs the separate dW kernel
-        if (launches[name]["lstm_dw_reduce"] > 0) != (
-                name == "train-haplotype"):
-            raise AssertionError(f"{name}: lstm_dw_reduce launched "
-                                 f"{launches[name]['lstm_dw_reduce']} times")
+        # H=64 sums dW inside the sweep; H=256 runs the separate dW kernel.
+        # Full groups replay one graph a batch shape (two depth buckets)
+        _check_groups(name, groups, launches[name], layers[name],
+                      name == "train-haplotype",
+                      1 if name == "train-pileup" else 2)
 
     # evaluate-haplotype on the training world's shards, with the shipped
     # v6b weights and with the checkpoint just trained
@@ -1949,8 +2033,9 @@ def phase_train(dev):
                                     512, d))
             for d in (dev, torch.device("cpu"))])
 
-    # the reference's own optimizers, one epoch each: Ranger for the
-    # pileup model, Ranger21 for the haplotype model
+    # the reference's own optimizers, two epochs each (the second replays
+    # the graphs the first captured): Ranger for the pileup model,
+    # Ranger21 for the haplotype model
     for name, argv, batch, opt in (
             ("train-pileup ranger", ["train-pileup", "--data", data_dir,
                                      "--batch-size", "2000"], 2000, "ranger"),
@@ -1967,27 +2052,25 @@ def phase_train(dev):
         K.reset_launch_counts()
         torch.cuda.synchronize()
         t = time.monotonic()
-        cli.main(argv + ["--config", yaml, "--epochs", "1", "--val-fraction",
-                         "0.1", "-o", run_out])
+        groups = _cli_train(argv + ["--config", yaml, "--epochs", "2",
+                                    "--val-fraction", "0.1", "-o", run_out])
         torch.cuda.synchronize()
         dt = time.monotonic() - t
         launches[name] = dict(K.LAUNCHES)
         base = name.split()[0]
         recs = _train_records(os.path.join(
-            run_out, base.replace("train-", "") + "_train"), epochs=1)
+            run_out, base.replace("train-", "") + "_train"))
         steps = recs[-1]["step"]
-        rows[name] = dict(optimizer=opt, epochs=1, steps=steps, batch=batch,
+        rows[name] = dict(optimizer=opt, epochs=2, steps=steps, batch=batch,
                           seconds=dt, steps_per_s=steps / dt,
                           lookahead_adam_steps_per_s=rows[base][
                               "steps_per_s"],
                           final_train_loss=recs[-2]["loss"],
-                          final_val_loss=recs[-1]["loss"])
+                          final_val_loss=recs[-1]["loss"], groups=groups)
         log(f"[{name}] {dt:.3f} s, {steps} steps, launches {launches[name]}")
         log(f"[{name}] " + json.dumps(rows[name]))
-        for k in ("lstm_recurrence_train", "lstm_recurrence_bwd") + (
-                ("lstm_dw_reduce",) if opt == "ranger21" else ()):
-            if launches[name][k] <= 0:
-                raise AssertionError(f"{name}: {k} was never launched")
+        _check_groups(name, groups, launches[name], layers[base],
+                      opt == "ranger21", 1 if opt == "ranger" else 2)
 
     # the trained pileup checkpoint loads into the port's model and predicts
     params, _ = load_checkpoint(os.path.join(out, "pileup_train",
@@ -2032,6 +2115,7 @@ def phase_train(dev):
         f" worst max|d|/max|want| over leaves {worst:.3e} (tol {GRAD_TOL})")
     if not worst <= GRAD_TOL:
         raise AssertionError(f"card gradients disagree: {worst}")
+    rows["graph replay"] = check_graph_replay(dev, arrays, rng)
     profile = profile_train_steps(dev, arrays, rng)
     log(json.dumps({"train_profile": profile}))
     shutil.rmtree(WORK, ignore_errors=True)
@@ -2532,9 +2616,9 @@ def _free_port():
 
 def _children(label, argvs, envs, code=CHILD):
     """Run the port's CLI in one child process per argv, all at once, each
-    with its environment -> (wall seconds of the lot, [launches of each]).
-    Raises if a child fails; kills every child still running on the way
-    out."""
+    with its environment -> (wall seconds of the lot, [launches of each],
+    [the train_groups record each printed, or None]). Raises if a child
+    fails; kills every child still running on the way out."""
     t = time.monotonic()
     procs = []
     try:
@@ -2549,14 +2633,15 @@ def _children(label, argvs, envs, code=CHILD):
                 p.kill()
                 p.wait()
     wall = time.monotonic() - t
-    counts = []
+    counts, groups = [], []
     for i, (p, (out, err)) in enumerate(zip(procs, outs)):
         if p.returncode != 0:
             raise AssertionError(f"{label}: child {i} exited "
                                  f"{p.returncode}:\n{err[-3000:]}")
         last = [l for l in out.splitlines() if l.startswith('{"launches"')]
         counts.append(json.loads(last[-1])["launches"])
-    return wall, counts
+        groups.append(_groups_record(out))
+    return wall, counts, groups
 
 
 def _child_env(extra=None):
@@ -2622,23 +2707,27 @@ def phase_multihost(dev):
             "native", "--contigs", "chrT", "chrC"] + dev_args
 
     def timed(name, argv):
+        """-> (wall seconds, a train-* command's group record or None)"""
         K.reset_launch_counts()
         t = time.monotonic()
-        if cli.main(argv) != 0:
+        rec = None
+        if argv[0].startswith("train-"):
+            rec = _cli_train(argv)
+        elif cli.main(argv) != 0:
             raise AssertionError(f"{name} failed")
         if dev.type == "cuda":
             torch.cuda.synchronize()
         dt = time.monotonic() - t
         launches[name] = dict(K.LAUNCHES)
         log(f"[{name}] {dt:.3f} s, launches {launches[name]}")
-        return dt
+        return dt, rec
 
     # call: one process, then two hosts on the same card
     single, multi = os.path.join(WORK, "mh_single"), os.path.join(WORK,
                                                                  "mh_multi")
-    wall1 = timed("call x1", call + ["-o", single])
+    wall1, _ = timed("call x1", call + ["-o", single])
     port = _free_port()
-    wall2, counts = _children("call x2", [
+    wall2, counts, _ = _children("call x2", [
         call + ["-o", multi, "--coordinator", f"127.0.0.1:{port}",
                 "--num-hosts", "2", "--host-id", str(h)] for h in range(2)],
         [_child_env()] * 2)
@@ -2682,11 +2771,16 @@ def phase_multihost(dev):
     rng = np.random.default_rng(SEED + 7)
     hap_work = os.path.join(WORK, "dp_hap")
     os.makedirs(hap_work)
-    hap_shards = _haplotype_train_world(rng, hap_work)
+    hap_shards = _haplotype_train_world(rng, hap_work, DP_HAP_SITES)
     cfg = os.path.join(WORK, "dp.yaml")
+    # groups of 2 steps: phase 4's arrays give 6 pileup batches an epoch,
+    # this world 4 haplotype batches a depth bucket, so each fills two
+    # groups or more (eager over two ranks; in one process the first
+    # eager, the others graph replays)
     with open(cfg, "w") as f:
         f.write("pileup_model:\n  dropout: 0.0\n"
-                "haplotype_model:\n  dropout: 0.0\n")
+                "haplotype_model:\n  dropout: 0.0\n"
+                "train:\n  steps_per_call: 2\n")
     from nanosnp_tpu_torch.config import load_config
     from nanosnp_tpu_torch.models.haplotype_model import \
         init_haplotype_params
@@ -2716,7 +2810,7 @@ def phase_multihost(dev):
                        "--val-fraction", "0.1"] + dev_args
         one, two, bad = (os.path.join(WORK, f"{name}_{k}")
                          for k in ("x1", "x2", "x2_no_mean"))
-        wall1 = timed(f"{name} x1", argv + ["-o", one])
+        wall1, one_groups = timed(f"{name} x1", argv + ["-o", one])
 
         def two_ranks(label, out, code):
             port = _free_port()
@@ -2725,7 +2819,7 @@ def phase_multihost(dev):
                             "NSP_NUM_PROCS": "2", "NSP_PROC_ID": str(r)})
                 for r in range(2)], code)
 
-        wall2, counts = two_ranks(f"{name} x2", two, CHILD)
+        wall2, counts, groups = two_ranks(f"{name} x2", two, CHILD)
         # the control: the same two ranks, each skipping the average (its
         # launches are not the path's)
         two_ranks(f"{name} x2 control", bad, CHILD_NO_MEAN)
@@ -2748,7 +2842,9 @@ def phase_multihost(dev):
             card=card, steps=steps, one_process_seconds=wall1,
             two_ranks_seconds=wall2, moved_gap=gap, moved_gap_worst_leaf=leaf,
             control_moved_gap=bad_gap, control_moved_gap_worst_leaf=bad_leaf,
-            final_train_loss=recs[-2]["loss"])
+            final_train_loss=recs[-2]["loss"],
+            one_process_steps_by_route=one_groups["steps"],
+            rank_steps_by_route=[g and g["steps"] for g in groups])
         log(f"[check] {name}: two ranks against one process, "
             f"|moved_2 - moved_1| / |moved_1| over all parameters {gap:.3e} "
             f"(worst leaf max|d| / max|moved_1| {leaf:.3e}); the control "
@@ -2767,6 +2863,19 @@ def phase_multihost(dev):
                 if dev.type == "cuda" and c[k] <= 0:
                     raise AssertionError(f"{name} rank {r}: {k} was never "
                                          "launched")
+        # each rank ran its full groups as eager steps, the one process
+        # (on the card) replayed a graph
+        log(f"[check] {name}: steps by route, one process "
+            f"{one_groups['steps']}, two ranks "
+            f"{[g and g['steps'] for g in groups]}")
+        for r, g in enumerate(groups):
+            if g is None or g["ranks"] != 2 or g["steps"]["graph"] \
+                    or g["steps"]["eager"] <= 0:
+                raise AssertionError(f"{name} rank {r}: not the eager group "
+                                     f"route: {g}")
+        if (one_groups["steps"]["graph"] > 0) != (dev.type == "cuda"):
+            raise AssertionError(f"{name} x1: steps by route "
+                                 f"{one_groups['steps']}")
     for h in range(2):
         for k in ("bilstm_stream", "bilstm_center", "bilstm_inproj",
                   "bilstm_cluster"):
@@ -2776,61 +2885,66 @@ def phase_multihost(dev):
     return launches, rows
 
 
-def profile_train_steps(dev, arrays, rng, flavors=True):
-    """Steady-state training steps of both models at full width, with
-    Lookahead-Adam and (`flavors`) with each model's Ranger flavor, apart
-    from the CLI's set-up: ms a step on the host clock over TIME_STEPS
-    steps (device synchronised; the step includes the batch's
-    host-to-device copy and the metric reads the trainer makes; four turns
-    of each optimizer in alternation, the upper median kept), then
-    torch.profiler over PROFILE_STEPS steps: device busy time a step (the
-    sum of device time of every kernel and copy: one stream, so they do
-    not overlap), its share of the step, the share of the port's own
-    kernels, and the five costliest device functions."""
-    import numpy as np
+def _train_parts(dev, model, opt, dropout=None):
+    """One trainer's parts at full width from the seeded start, as the
+    CLI builds them: its state, optimizer and dropout generator (None at
+    dropout 0; `dropout` None keeps the configuration's), `single` (the
+    package's one-step function, `make_*_train_step`) and, where the
+    package groups steps, `step` (the group runner's step function) and
+    `host` (a batch as it ships)."""
     import torch
 
     from nanosnp_tpu_torch.config import (HaplotypeModelConfig,
                                           PileupModelConfig, TrainConfig)
-    from nanosnp_tpu_torch.models.haplotype_model import (
-        HaplotypeModel, init_haplotype_params)
-    from nanosnp_tpu_torch.models.pileup_model import (PileupModel,
-                                                       init_pileup_params)
     from nanosnp_tpu_torch.train.optim import build_optimizer
-    from nanosnp_tpu_torch.train.train_haplotype import (
-        _device_batch, make_haplotype_train_step)
-    from nanosnp_tpu_torch.train.train_pileup import (init_state,
-                                                      make_pileup_train_step)
+    from nanosnp_tpu_torch.train.train_pileup import init_state
 
     tcfg = TrainConfig()
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    init_gen = torch.Generator().manual_seed(SEED)
-
-    def pileup_step(opt):
+    if model == "train-pileup":
+        from nanosnp_tpu_torch.models.pileup_model import (
+            PileupModel as cls, init_pileup_params as init)
+        from nanosnp_tpu_torch.train import train_pileup as T
         mcfg = PileupModelConfig()
-        tx = build_optimizer(replace(tcfg.optim, type=opt), 100)
-        state = init_state(PileupModel(mcfg, init_pileup_params(
-            init_gen, mcfg)).to(dev), tx)
-        step = make_pileup_train_step(mcfg, tcfg, tx, use_kernels=True)
-        idx = np.arange(2000)
-        x = arrays.matrix[idx].astype(np.float32)
-        gt = arrays.label[idx, :21].argmax(1)
-        zy = arrays.label[idx, 21:24].argmax(1)
-
-        def run():
-            m = step(state, torch.from_numpy(x).to(dev),
-                     torch.from_numpy(gt).to(dev),
-                     torch.from_numpy(zy).to(dev), gen, 0.0)
-            return float(m["loss"]), m["gt_pred"].cpu(), m["zy_pred"].cpu()
-
-        return run
-
-    def haplotype_step(opt):
+        make_single, make_step = "make_pileup_train_step", "make_pileup_step"
+    else:
+        from nanosnp_tpu_torch.models.haplotype_model import (
+            HaplotypeModel as cls, init_haplotype_params as init)
+        from nanosnp_tpu_torch.train import train_haplotype as T
         mcfg = HaplotypeModelConfig()
-        tx = build_optimizer(replace(tcfg.optim, type=opt), 100)
-        state = init_state(HaplotypeModel(mcfg, init_haplotype_params(
-            init_gen, mcfg)).to(dev), tx)
-        step = make_haplotype_train_step(mcfg, tcfg, tx, use_kernels=True)
+        make_single = "make_haplotype_train_step"
+        make_step = "make_haplotype_step"
+    if dropout is not None:
+        mcfg = replace(mcfg, dropout=dropout)
+    tx = build_optimizer(replace(tcfg.optim, type=opt), 100)
+    state = init_state(cls(mcfg, init(torch.Generator().manual_seed(SEED),
+                                      mcfg)).to(dev), tx)
+    gen = (torch.Generator(device=dev).manual_seed(SEED) if mcfg.dropout > 0
+           else None)
+    parts = SimpleNamespace(state=state, tx=tx, gen=gen, step=None,
+                            host=None, single=getattr(T, make_single)(
+                                mcfg, tcfg, tx, use_kernels=True))
+    if hasattr(T, make_step):
+        step = getattr(T, make_step)(mcfg, tcfg, tx, use_kernels=True)
+        parts.step = lambda batch, row: step(state, batch, gen, row)
+        parts.host = (T._host_batch if model == "train-haplotype"
+                      else lambda b: b)
+    return parts
+
+
+def _train_batches(model, arrays, rng):
+    """GROUP host batches of a trainer at its CLI batch size: pileup rows of
+    `arrays` (taken again from the start where it has fewer), haplotype
+    read matrices at depth 64."""
+    import numpy as np
+
+    out = []
+    for i in range(GROUP):
+        if model == "train-pileup":
+            idx = (np.arange(2000) + 2000 * i) % len(arrays.matrix)
+            out.append({"x": arrays.matrix[idx].astype(np.float32),
+                        "gt": arrays.label[idx, :21].argmax(1),
+                        "zy": arrays.label[idx, 21:24].argmax(1)})
+            continue
         batch = {}
         for pre, seq_len in (("p_", 33), ("h_", 11)):
             view = _read_matrices(rng, 512, 64, seq_len, 0)
@@ -2841,66 +2955,223 @@ def profile_train_steps(dev, arrays, rng, flavors=True):
                 np.float32)
         batch["gt"] = rng.integers(0, 10, 512).astype(np.int32)
         batch["zy"] = rng.integers(0, 3, 512).astype(np.int32)
+        out.append(batch)
+    return out
 
-        def run():
-            m = step(state, _device_batch(batch, dev), gen, 0.0)
-            return float(m["loss"]), m["gt_pred"].cpu(), m["zy_pred"].cpu()
 
-        return run
+def _state_gap(a, b):
+    """Two training states: (the same bits, the worst max|a - b| / max|b|
+    over the leaves of the parameters, the Lookahead slow parameters and
+    the optimizer's per-leaf state). Their counts must be equal."""
+    import torch
 
-    out, cases = {}, []
-    for model, make, flavor in (("train-pileup", pileup_step, "ranger"),
-                                ("train-haplotype", haplotype_step,
-                                 "ranger21")):
-        # both optimizers' steps timed in turns (A B B A A B B A), the
-        # host clock drifts between runs
-        runs = {opt: make(opt) for opt in ("lookahead_adam", flavor)[
-            :2 if flavors else 1]}
-        for run in runs.values():
-            for _ in range(3):
-                run()
-        turns = {opt: [] for opt in runs}
+    from nanosnp_tpu_torch.models.convert import flatten_tree
+
+    def leaves(st):
+        out = [p for _, p in flatten_tree(st.model.tree())]
+        if st.slow is not None:
+            out += [p for _, p in flatten_tree(st.slow)]
+        return out + [t for k in sorted(st.opt_state)
+                      if isinstance(st.opt_state[k], list)
+                      for t in st.opt_state[k]]
+
+    if {k: v for k, v in a.opt_state.items() if not isinstance(v, list)} != \
+            {k: v for k, v in b.opt_state.items() if not isinstance(v, list)}:
+        raise AssertionError("the optimizer counts differ")
+    pairs = [(x.detach(), y.detach()) for x, y in zip(leaves(a), leaves(b))]
+    same = all(torch.equal(x, y) for x, y in pairs)
+    worst = max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+                for x, y in pairs)
+    return same, worst
+
+
+def check_graph_replay(dev, arrays, rng):
+    """Both trainers at full width, Lookahead-Adam and their Ranger flavor,
+    dropout 0 and the configuration's: three groups of GROUP batches
+    through the group runner at steps_per_call GROUP (the first eager, the
+    second captured and replayed, the third replayed) against the same
+    batches as single eager steps (steps_per_call 1) from the same seeded
+    state. After each group the parameters, Lookahead slow parameters
+    and optimizer state must be the same bits, or within REPLAY_TOL of
+    each other (printed), and the dropout generators' states equal."""
+    import torch
+
+    from nanosnp_tpu_torch.train.group import GroupRunner
+
+    out = {}
+    for model, flavor in (("train-pileup", "ranger"),
+                          ("train-haplotype", "ranger21")):
+        batches = _train_batches(model, arrays, rng)
+        for opt in ("lookahead_adam", flavor):
+            for dropout in (0.0, None):
+                runs = []
+                for group in (GROUP, 1):
+                    p = _train_parts(dev, model, opt, dropout)
+                    runs.append((GroupRunner(p.step, p.tx, p.state, p.gen,
+                                             dev, group), p))
+                (grouped, a), (single, b) = runs
+                host = [a.host(x) for x in batches]
+                row = dict(dropout=a.gen is not None, groups=[])
+                for g in range(3):
+                    grouped.run(host)
+                    for x in host:
+                        single.run([x])
+                    torch.cuda.synchronize()
+                    same, worst = _state_gap(a.state, b.state)
+                    gen_same = None if a.gen is None else bool(torch.equal(
+                        a.gen.get_state(), b.gen.get_state()))
+                    row["groups"].append(dict(
+                        route="eager" if g == 0 else "graph",
+                        same_bits=same, worst_rel=worst,
+                        generator_same=gen_same))
+                    if not (same or worst <= REPLAY_TOL) or gen_same is False:
+                        raise AssertionError(
+                            f"{model} {opt}: group {g + 1} of {GROUP} "
+                            f"steps differs from single steps: {row}")
+                row["steps"], row["graphs"] = grouped.steps, grouped.graphs
+                name = f"{model} {opt} dropout {'on' if row['dropout'] else 0}"
+                out[name] = row
+                log(f"[check] graph replay, {name}: " + "; ".join(
+                    f"group {i + 1} ({r['route']}) "
+                    + ("same bits" if r["same_bits"] else
+                       f"worst max|d|/max|want| {r['worst_rel']:.3e} "
+                       f"(tol {REPLAY_TOL})")
+                    + ("" if r["generator_same"] is None else
+                       ", generator state the same")
+                    for i, r in enumerate(row["groups"]))
+                    + "; graph capture " + json.dumps(
+                        [{k: g[k] for k in ("capture_seconds", "pool_bytes")}
+                         for g in grouped.graphs]))
+                del runs, grouped, single, a, b
+                torch.cuda.empty_cache()
+    return out
+
+
+# the training kernels' names in a profiler trace, by wrapper
+KERNEL_NAMES = {"lstm_recurrence_train": "lstm_fwd",
+                "lstm_recurrence_bwd": "lstm_bwd",
+                "lstm_dw_reduce": "lstm_dw_tc"}
+
+
+def profile_train_steps(dev, arrays, rng, flavors=True):
+    """Steady-state training steps of both models at full width, with
+    Lookahead-Adam and (`flavors`) each model's Ranger flavor, apart from
+    the CLI's set-up, two ways: single steps (steps_per_call 1, the
+    package's one-step function; each step copies its batch to the card
+    and reads its metrics) and, where the package groups steps, groups of
+    GROUP (the group runner: one CUDA graph replay, batches from pinned
+    staging, metrics read once). ms a step on the host clock (device
+    synchronised; TIME_RUNS runs of GROUP steps a turn, four turns with
+    the order reversed every turn, the upper median kept), then
+    torch.profiler over one run of GROUP steps: device busy time a step
+    (the sum of device time of every kernel and copy), its share of the
+    step, the share of the port's own kernels, the five costliest device
+    functions; for a grouped run, its graph's capture seconds and pool
+    bytes, and the training kernels' launches by name in the trace
+    against the counts the replays added (they must be equal where the
+    trace shows them)."""
+    import torch
+
+    from nanosnp_tpu_torch.train.train_haplotype import _device_batch
+
+    try:
+        from nanosnp_tpu_torch.train.group import GroupRunner
+    except ImportError:     # a package that runs single steps only
+        GroupRunner = None
+
+    out = {}
+    for model, flavor in (("train-pileup", "ranger"),
+                          ("train-haplotype", "ranger21")):
+        batches = _train_batches(model, arrays, rng)
+        runs = {}
+        for opt in ("lookahead_adam", flavor)[:2 if flavors else 1]:
+            label = model if opt == "lookahead_adam" else f"{model} {opt}"
+            p = _train_parts(dev, model, opt)
+
+            def single(p=p):
+                for b in batches:
+                    if model == "train-pileup":
+                        m = p.single(p.state, *(torch.from_numpy(b[k]).to(dev)
+                                                for k in ("x", "gt", "zy")),
+                                     p.gen, 0.0)
+                    else:
+                        m = p.single(p.state, _device_batch(b, dev), p.gen,
+                                     0.0)
+                    float(m["loss"]), m["gt_pred"].cpu(), m["zy_pred"].cpu()
+
+            runs[f"{label} steps_per_call 1"] = (single, None)
+            if GroupRunner is not None and p.step is not None:
+                q = _train_parts(dev, model, opt)
+                runner = GroupRunner(q.step, q.tx, q.state, q.gen, dev, GROUP)
+                host = [q.host(b) for b in batches]
+                runs[f"{label} steps_per_call {GROUP}"] = (
+                    lambda r=runner, h=host: r.run(h), runner)
+        for fn, _ in runs.values():
+            for _ in range(3):      # the grouped run: eager, capture, replay
+                fn()
+        turns = {k: [] for k in runs}
         for turn in range(4):
-            for opt in list(runs)[::1 if turn % 2 == 0 else -1]:
+            for k in list(runs)[::1 if turn % 2 == 0 else -1]:
                 torch.cuda.synchronize()
                 t = time.monotonic()
-                for _ in range(TIME_STEPS):
-                    runs[opt]()
+                for _ in range(TIME_RUNS):
+                    runs[k][0]()
                 torch.cuda.synchronize()
-                turns[opt].append((time.monotonic() - t) / TIME_STEPS * 1e3)
-        cases += [(model if opt == "lookahead_adam" else f"{model} {opt}",
-                   runs[opt], turns[opt]) for opt in runs]
-    for name, run, turns in cases:
-        ms = sorted(turns)[len(turns) // 2]
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(PROFILE_STEPS):
-                run()
-            torch.cuda.synchronize()
-        # device-side events only (kernels, copies): the host ops that
-        # launch them carry the same time again as their own device time
-        dev_ms = {}
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            t_us = getattr(e, "self_device_time_total", None)
-            if t_us is None:
-                t_us = getattr(e, "self_cuda_time_total", 0)
-            if t_us > 0:
-                dev_ms[e.key] = t_us / 1e3 / PROFILE_STEPS
-        busy = sum(dev_ms.values())
-        ours = sum(v for k, v in dev_ms.items() if "lstm" in k)
-        top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:5]
-        out[name] = {
-            "ms_per_step": ms, "ms_per_step_turns": turns,
-            "device_busy_ms_per_step": busy if busy else None,
-            "device_busy_share": busy / ms if busy else None,
-            "port_kernels_ms_per_step": ours if busy else None,
-            "top_device_ms_per_step": [[k[:80], v] for k, v in top]}
-        log(f"[profile] {name}: {ms:.2f} ms a step, device busy "
-            + (f"{busy:.2f} ms ({busy / ms:.0%}), port kernels {ours:.2f} ms"
-               if busy else "not measured (no device time in the trace)"))
+                turns[k].append((time.monotonic() - t) / (TIME_RUNS * GROUP)
+                                * 1e3)
+        for name, (fn, runner) in runs.items():
+            ms = sorted(turns[name])[len(turns[name]) // 2]
+            before = None if runner is None else dict(runner.steps)
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                fn()
+                torch.cuda.synchronize()
+            # device-side events only (kernels, copies): the host ops that
+            # launch them carry the same time again as their own device time
+            dev_ms, by_name = {}, {k: 0 for k in KERNEL_NAMES}
+            for e in prof.key_averages():
+                if e.device_type != torch.autograd.DeviceType.CUDA:
+                    continue
+                t_us = getattr(e, "self_device_time_total", None)
+                if t_us is None:
+                    t_us = getattr(e, "self_cuda_time_total", 0)
+                if t_us > 0:
+                    dev_ms[e.key] = t_us / 1e3 / GROUP
+                for k, frag in KERNEL_NAMES.items():
+                    if frag in e.key:
+                        by_name[k] += e.count
+            busy = sum(dev_ms.values())
+            ours = sum(v for k, v in dev_ms.items() if "lstm" in k)
+            top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:5]
+            row = {
+                "ms_per_step": ms, "ms_per_step_turns": turns[name],
+                "device_busy_ms_per_step": busy if busy else None,
+                "device_busy_share": busy / ms if busy else None,
+                "port_kernels_ms_per_step": ours if busy else None,
+                "top_device_ms_per_step": [[k[:80], v] for k, v in top]}
+            if runner is not None:
+                if runner.steps["graph"] - before["graph"] != GROUP:
+                    raise AssertionError(f"{name}: the profiled run was not "
+                                         "a replay")
+                counted = runner.graphs[0]["launches_a_replay"]
+                row["graphs"] = [{k: g[k] for k in (
+                    "capture_seconds", "pool_bytes")} for g in runner.graphs]
+                row["kernel_launches_in_trace"] = by_name if busy else None
+                row["kernel_launches_counted"] = counted
+                if busy and any(by_name[k] != counted.get(k, 0)
+                                for k in KERNEL_NAMES):
+                    raise AssertionError(f"{name}: the trace launched "
+                                         f"{by_name}, the counts say "
+                                         f"{counted}")
+            out[name] = row
+            log(f"[profile] {name}: {ms:.2f} ms a step, device busy "
+                + (f"{busy:.2f} ms ({busy / ms:.0%}), port kernels "
+                   f"{ours:.2f} ms" if busy else
+                   "not measured (no device time in the trace)")
+                + ("" if runner is None else
+                   f"; training kernels in the trace {by_name}, counted "
+                   f"{counted}; graphs {row['graphs']}"))
     return out
 
 

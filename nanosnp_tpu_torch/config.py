@@ -152,10 +152,10 @@ class TrainConfig:
     # train.py:223-230 first_stage encoder/forward freeze)
     first_stage: Optional[int] = None
     freeze_prefixes: tuple = ("encoder",)
-    # training batches per device dispatch in the JAX package. The port
-    # accepts the field (shared YAML files load) and runs single steps;
-    # only the haplotype trainer's buffering, which keeps the JAX step
-    # order, reads it
+    # training batches per device dispatch, as in the JAX package: both
+    # trainers buffer this many same-shape batches and run them as one
+    # group of sequential steps (train/group.py: one CUDA graph replay on
+    # the card; 1 gives single steps)
     steps_per_call: int = 8
     optim: OptimConfig = field(default_factory=OptimConfig)
 

@@ -53,22 +53,17 @@ class HaplotypeModel(nn.Module):
                       *, use_kernels: bool,
                       generator: Optional[torch.Generator] = None):
         """The JAX package's training branch of haplotype_forward
-        (compute_dtype f32): each branch's full encoder, with its own
-        dropout generator split off the given one, then the center slices
-        and the f32 head. -> (gt, zy) logits."""
-        gens = [None, None]
-        if generator is not None:
-            seeds = torch.randint(0, 2 ** 62, (2,), generator=generator,
-                                  device=generator.device).tolist()
-            gens = [torch.Generator(device=generator.device).manual_seed(s)
-                    for s in seeds]
+        (compute_dtype f32): each branch's full encoder, both drawing
+        their dropout masks from `generator` (the pileup branch first; no
+        value goes to the host, so a CUDA graph can hold the step), then
+        the center slices and the f32 head. -> (gt, zy) logits."""
         cfg = self.cfg
         enc_p = bilstm_encoder_train(self.pileup_encoder.layers, pileup_x,
                                      use_kernels=use_kernels,
-                                     dropout=cfg.dropout, generator=gens[0])
+                                     dropout=cfg.dropout, generator=generator)
         enc_h = bilstm_encoder_train(self.haplotype_encoder.layers,
                                      haplotype_x, use_kernels=use_kernels,
-                                     dropout=cfg.dropout, generator=gens[1])
+                                     dropout=cfg.dropout, generator=generator)
         feat = torch.cat([
             self.pileup_proj(enc_p[:, cfg.pileup_length // 2]),
             self.haplotype_proj(enc_h[:, cfg.haplotype_length // 2])], dim=-1)

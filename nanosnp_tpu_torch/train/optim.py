@@ -30,16 +30,24 @@ order:
      the mask follows tx.update
   -> params += updates.
 
-Scalars that optax computes in f32 from the step count (RAdam's rho and
-rectification, ranger21's lr) are computed here in numpy f32 the same way:
-XLA raises a float to an integer power by square-and-multiply
-(`pow32`), and RAdam's rectification term is too sensitive to rho for a
-one-ulp difference there. The Adam path keeps torch's pow, as it always
-has.
+Every scalar that depends on the update count (Adam's and RAdam's bias
+corrections, RAdam's rectification and its switch, novograd's first
+step, the lr, Lookahead's sync) and the freeze scale come from a table
+that `Optimizer.scalar_table` computes on the host for counts c ... c+G-1,
+one f32 row an update; `Optimizer.update` reads one row of it as a device
+tensor, and host branches are `torch.where`s. So G updates run with no
+host value baked in, as one CUDA graph replays them (train/group.py), and
+a single step is the table's one-row case. optax computes those scalars
+in f32 from the count, and so does the table: XLA raises a float to an
+integer power by square-and-multiply (`pow32`), and RAdam's rectification
+term is too sensitive to rho for a one-ulp difference there; the Adam
+path keeps torch's f32 pow, as it always has. Per-leaf state keeps its
+storage: each update writes its new value into the state tensor
+(`copy_`), computed as before, not by fused in-place arithmetic.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -101,12 +109,16 @@ def is_lookahead_type(type_str: str) -> bool:
     return t.startswith("lookahead") or t in ("ranger", "ranger21")
 
 
-# -- transforms: (updates, params, state, count) -> updates ----------------
-# `count` is the number of updates made before this one; per-leaf state
-# lives in `state` under the names each transform lists in `slots`.
+# -- transforms: (updates, params, state, scalars) -> updates --------------
+# Per-leaf state lives in `state` under the names each transform lists in
+# `slots` and is written in place. `scalars` are the transform's per-update
+# scalars, 0-d tensors in the order of `scalar_names`, which
+# `scalar_values(count)` computes on the host (`count` is the number of
+# updates made before this one).
 
 class Transform:
     slots: Dict[str, str] = {}   # state name -> "leaf" or "scalar" per leaf
+    scalar_names: Tuple[str, ...] = ()
 
     def init(self, params: Sequence[torch.Tensor]) -> dict:
         return {k: [torch.zeros_like(p) if kind == "leaf"
@@ -114,8 +126,11 @@ class Transform:
                     for p in params]
                 for k, kind in self.slots.items()}
 
+    def scalar_values(self, count: int) -> Sequence[float]:
+        return ()
+
     def __call__(self, u: Leaves, params: Leaves, state: dict,
-                 count: int) -> Leaves:
+                 scalars: Sequence[torch.Tensor]) -> Leaves:
         raise NotImplementedError
 
 
@@ -123,7 +138,7 @@ class ClipByGlobalNorm(Transform):
     def __init__(self, max_norm: float):
         self.max_norm = max_norm
 
-    def __call__(self, u, params, state, count):
+    def __call__(self, u, params, state, scalars):
         g_norm = torch.sqrt(sum(torch.sum(g * g) for g in u))
         keep = g_norm < self.max_norm
         return [torch.where(keep, g, (g / g_norm) * self.max_norm) for g in u]
@@ -150,7 +165,7 @@ class AdaptiveGradClip(Transform):
     def __init__(self, clipping: float, eps: float = 1e-3):
         self.clipping, self.eps = clipping, eps
 
-    def __call__(self, u, params, state, count):
+    def __call__(self, u, params, state, scalars):
         out = []
         for g, p in zip(u, params):
             g_norm = unitwise_norm(g)
@@ -165,7 +180,7 @@ class Centralize(Transform):
     """Gradient centralization: a leaf of more than one dimension loses its
     mean over every axis but the first."""
 
-    def __call__(self, u, params, state, count):
+    def __call__(self, u, params, state, scalars):
         return [g if g.dim() <= 1 else
                 g - g.mean(dim=tuple(range(1, g.dim())), keepdim=True)
                 for g in u]
@@ -173,26 +188,32 @@ class Centralize(Transform):
 
 class ScaleByAdam(Transform):
     slots = {"mu": "leaf", "nu": "leaf"}
+    scalar_names = ("bc1", "bc2")
 
     def __init__(self, b1=0.9, b2=0.999, eps=1e-8):
         self.b1, self.b2, self.eps = b1, b2, eps
 
-    def __call__(self, u, params, state, count):
+    def scalar_values(self, count):
+        # the bias corrections with torch's f32 pow
+        return [float(1.0 - torch.tensor(b, dtype=torch.float32)
+                      ** (count + 1)) for b in (self.b1, self.b2)]
+
+    def __call__(self, u, params, state, scalars):
         b1, b2 = self.b1, self.b2
-        bc1 = 1.0 - torch.tensor(b1, dtype=torch.float32) ** (count + 1)
-        bc2 = 1.0 - torch.tensor(b2, dtype=torch.float32) ** (count + 1)
+        bc1, bc2 = scalars
         out = []
         for i, g in enumerate(u):
             mu = (1 - b1) * g + b1 * state["mu"][i]
             nu = (1 - b2) * (g * g) + b2 * state["nu"][i]
-            state["mu"][i], state["nu"][i] = mu, nu
-            out.append((mu / bc1.to(g.device))
-                       / (torch.sqrt(nu / bc2.to(g.device)) + self.eps))
+            state["mu"][i].copy_(mu)
+            state["nu"][i].copy_(nu)
+            out.append((mu / bc1) / (torch.sqrt(nu / bc2) + self.eps))
         return out
 
 
 class ScaleByRAdam(Transform):
     slots = {"mu": "leaf", "nu": "leaf"}
+    scalar_names = ("bc1", "bc2", "r", "rectified")
 
     def __init__(self, b1=0.9, b2=0.999, eps=1e-8, threshold=5.0):
         self.b1, self.b2, self.eps, self.threshold = b1, b2, eps, threshold
@@ -209,21 +230,28 @@ class ScaleByRAdam(Transform):
         with np.errstate(invalid="ignore"):
             return ro, np.sqrt(f32(num / den))
 
-    def __call__(self, u, params, state, count):
-        b1, b2 = self.b1, self.b2
+    def scalar_values(self, count):
         n = count + 1
-        bc1 = float(f32(f32(1.0) - pow32(b1, n)))
-        bc2 = float(f32(f32(1.0) - pow32(b2, n)))
         ro, r = self.rectification(n)
-        rectified = bool(ro >= f32(self.threshold))
+        # r may be NaN before the switch, where it is not read
+        return [f32(f32(1.0) - pow32(self.b1, n)),
+                f32(f32(1.0) - pow32(self.b2, n)), r,
+                float(ro >= f32(self.threshold))]
+
+    def __call__(self, u, params, state, scalars):
+        b1, b2 = self.b1, self.b2
+        bc1, bc2, r, rectified = scalars
+        rectified = rectified > 0
         out = []
         for i, g in enumerate(u):
             mu = (1 - b1) * g + b1 * state["mu"][i]
             nu = (1 - b2) * (g * g) + b2 * state["nu"][i]
-            state["mu"][i], state["nu"][i] = mu, nu
+            state["mu"][i].copy_(mu)
+            state["nu"][i].copy_(nu)
             mu_hat = mu / bc1
-            out.append(float(r) * mu_hat / (torch.sqrt(nu / bc2) + self.eps)
-                       if rectified else mu_hat)
+            out.append(torch.where(
+                rectified, r * mu_hat / (torch.sqrt(nu / bc2) + self.eps),
+                mu_hat))
         return out
 
 
@@ -231,19 +259,25 @@ class ScaleByNovograd(Transform):
     """optax's scale_by_novograd: the second moment is one scalar a leaf
     (its squared norm), seeded from the first step's gradient."""
     slots = {"mu": "leaf", "nu": "scalar"}
+    scalar_names = ("first",)
 
     def __init__(self, b1=0.9, b2=0.25, eps=1e-6, weight_decay=0.0):
         self.b1, self.b2, self.eps, self.wd = b1, b2, eps, weight_decay
 
-    def __call__(self, u, params, state, count):
-        first = count == 0
+    def scalar_values(self, count):
+        return [float(count == 0)]
+
+    def __call__(self, u, params, state, scalars):
+        first = scalars[0] > 0
         out = []
         for i, (g, p) in enumerate(zip(u, params)):
             sq = torch.sqrt(torch.sum(g * g)) ** 2
-            nu = sq if first else (1 - self.b2) * sq + self.b2 * state["nu"][i]
+            nu = torch.where(first, sq, (1 - self.b2) * sq
+                             + self.b2 * state["nu"][i])
             step = g / (torch.sqrt(nu) + self.eps) + self.wd * p
-            mu = step if first else self.b1 * state["mu"][i] + step
-            state["mu"][i], state["nu"][i] = mu, nu
+            mu = torch.where(first, step, self.b1 * state["mu"][i] + step)
+            state["mu"][i].copy_(mu)
+            state["nu"][i].copy_(nu)
             out.append(mu)
         return out
 
@@ -255,11 +289,11 @@ class Trace(Transform):
     def __init__(self, decay: float, nesterov: bool):
         self.decay, self.nesterov = decay, nesterov
 
-    def __call__(self, u, params, state, count):
+    def __call__(self, u, params, state, scalars):
         out = []
         for i, g in enumerate(u):
             t = g + self.decay * state["trace"][i]
-            state["trace"][i] = t
+            state["trace"][i].copy_(t)
             out.append(g + self.decay * t if self.nesterov else t)
         return out
 
@@ -270,15 +304,16 @@ class ScaleByAdadelta(Transform):
     def __init__(self, rho=0.9, eps=1e-6):
         self.rho, self.eps = rho, eps
 
-    def __call__(self, u, params, state, count):
+    def __call__(self, u, params, state, scalars):
         rho = self.rho
         out = []
         for i, g in enumerate(u):
             e_g = (1 - rho) * (g * g) + rho * state["e_g"][i]
             x = (torch.sqrt(state["e_x"][i] + self.eps)
                  / torch.sqrt(e_g + self.eps)) * g
-            state["e_g"][i] = e_g
-            state["e_x"][i] = (1 - rho) * (x * x) + rho * state["e_x"][i]
+            e_x = (1 - rho) * (x * x) + rho * state["e_x"][i]
+            state["e_g"][i].copy_(e_g)
+            state["e_x"][i].copy_(e_x)
             out.append(x)
         return out
 
@@ -290,7 +325,7 @@ class NormLoss(Transform):
     def __init__(self, factor: float):
         self.factor = factor
 
-    def __call__(self, u, params, state, count):
+    def __call__(self, u, params, state, scalars):
         out = []
         for x, p in zip(u, params):
             sq = (torch.sum(p * p, dim=tuple(range(1, p.dim())), keepdim=True)
@@ -305,20 +340,23 @@ class AddDecayedWeights(Transform):
     def __init__(self, weight_decay: float):
         self.wd = weight_decay
 
-    def __call__(self, u, params, state, count):
+    def __call__(self, u, params, state, scalars):
         if not self.wd:
             return u
         return [x + self.wd * p for x, p in zip(u, params)]
 
 
 class ScaleByLearningRate(Transform):
+    scalar_names = ("step_size",)
+
     def __init__(self, schedule: Callable[[int], float]):
         self.schedule = schedule
 
-    def __call__(self, u, params, state, count):
-        step_size = -self.schedule(count)
-        return [torch.tensor(step_size, dtype=x.dtype, device=x.device) * x
-                for x in u]
+    def scalar_values(self, count):
+        return [-self.schedule(count)]
+
+    def __call__(self, u, params, state, scalars):
+        return [scalars[0] * x for x in u]
 
 
 def build_chain(cfg: OptimConfig, lr: Callable[[int], float],
@@ -376,32 +414,82 @@ class Optimizer:
             state.update(tr.init(params))
         return state
 
+    @property
+    def n_scalars(self) -> int:
+        """Columns of `scalar_table`: every transform's scalars, then
+        Lookahead's sync flag and the freeze scale."""
+        return sum(len(tr.scalar_names) for tr in self.chain) + 2
+
+    def scalar_table(self, state: dict, n: int,
+                     freeze_on: float = 0.0) -> np.ndarray:
+        """[n, n_scalars] f32: row i holds the scalars of the update made
+        after state's `count` + i updates (each transform's
+        `scalar_values`, in chain order), Lookahead's sync flag (1 where
+        the update completes a sync period) and the freeze scale
+        1 - freeze_on, which multiplies the frozen leaves' updates."""
+        rows = []
+        for i in range(n):
+            row = [v for tr in self.chain
+                   for v in tr.scalar_values(state["count"] + i)]
+            sync = self.lookahead and (state["steps_since_sync"] + i) \
+                % self.sync_period == self.sync_period - 1
+            rows.append(row + [float(sync), 1.0 - freeze_on])
+        return np.asarray(rows, np.float32).reshape(n, self.n_scalars)
+
     @torch.no_grad()
-    def step(self, params: List[torch.Tensor], grads: Sequence[torch.Tensor],
-             state: dict, slow: Optional[List[torch.Tensor]] = None,
-             scales: Optional[Sequence[float]] = None) -> None:
+    def update(self, params: List[torch.Tensor],
+               grads: Sequence[torch.Tensor], state: dict,
+               row: torch.Tensor, slow: Optional[List[torch.Tensor]] = None,
+               frozen: Optional[Sequence[bool]] = None) -> None:
         """One update, in place: `params` (the fast params), `slow` (the
-        Lookahead slow params, required with Lookahead), `state`. `scales`
-        multiplies each leaf's updates (the freeze mask)."""
+        Lookahead slow params, required with Lookahead), the per-leaf
+        state. Every count-dependent value comes from `row`, a row of
+        `scalar_table` as a tensor on the params' device; the frozen
+        leaves' updates (fast and slow) are multiplied by its freeze
+        scale. The counts do not move: `advance` moves them."""
         if self.lookahead and slow is None:
             raise ValueError("Lookahead needs the slow params")
-        u = list(grads)
+        u, at = list(grads), 0
         for tr in self.chain:
-            u = tr(u, params, state, state["count"])
-        sync = self.lookahead and \
-            state["steps_since_sync"] == self.sync_period - 1
+            k = len(tr.scalar_names)
+            u = tr(u, params, state, [row[at + j] for j in range(k)])
+            at += k
+        sync, keep = row[at] > 0, row[at + 1]
         for i, (p, x) in enumerate(zip(params, u)):
-            scale = 1.0 if scales is None else scales[i]
-            if sync:
+            scaled = frozen is not None and frozen[i]
+            if self.lookahead:
                 diff = p + x - slow[i]
                 slow_u = self.slow_step * diff
-                x = x - (1 - self.slow_step) * diff
-                slow[i].add_(slow_u if scale == 1.0 else slow_u * scale)
-            p.add_(x if scale == 1.0 else x * scale)
-        state["count"] += 1
+                x = torch.where(sync, x - (1 - self.slow_step) * diff, x)
+                slow[i].copy_(torch.where(
+                    sync, slow[i] + (slow_u * keep if scaled else slow_u),
+                    slow[i]))
+            p.add_(x * keep if scaled else x)
+
+    def advance(self, state: dict, n: int) -> None:
+        """Move the counts past n updates."""
+        state["count"] += n
         if self.lookahead:
-            state["steps_since_sync"] = (state["steps_since_sync"] + 1) \
+            state["steps_since_sync"] = (state["steps_since_sync"] + n) \
                 % self.sync_period
+
+    def first_row(self, state: dict, freeze_on: float,
+                  device: torch.device) -> torch.Tensor:
+        """The scalars of the next update, on `device`: a single step's
+        table."""
+        return torch.from_numpy(self.scalar_table(state, 1, freeze_on)[0]
+                                ).to(device)
+
+    def step(self, params: List[torch.Tensor], grads: Sequence[torch.Tensor],
+             state: dict, slow: Optional[List[torch.Tensor]] = None,
+             frozen: Optional[Sequence[bool]] = None,
+             freeze_on: float = 0.0) -> None:
+        """One update from the counts in `state`: `update` with the
+        one-row table, then `advance`."""
+        self.update(params, grads, state,
+                    self.first_row(state, freeze_on, params[0].device), slow,
+                    frozen)
+        self.advance(state, 1)
 
 
 def build_optimizer(cfg: OptimConfig, steps_per_epoch: int = 1000,

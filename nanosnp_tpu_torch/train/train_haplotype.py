@@ -5,7 +5,10 @@ Loss = label-smoothed CE on gt(10) + zy(3); the optimizer, checkpoints and
 per-epoch records are train_pileup's. Features are computed on the device
 inside the train step (features/haplotype.haplotype_features), so the
 host ships compact int8 read matrices, not 105-float tensors. Epoch
-boundaries come from the data.EPOCH_END sentinel.
+boundaries come from the data.EPOCH_END sentinel. Batches come in depth
+buckets: as the JAX trainer, it keeps one buffer a batch shape and runs
+each full buffer of steps_per_call as one group (train/group.py; one
+graph a shape on the card).
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ from ..features.haplotype import haplotype_features
 from ..models.haplotype_model import HaplotypeModel, init_haplotype_params
 from .optim import Optimizer
 from .train_pileup import (Trainer, TrainState, _head_metrics,
-                           apply_gradients, freeze_mask_fn)
+                           apply_gradients, freeze_mask_fn, single_step)
 
 
 def _featurize(batch):
@@ -30,24 +33,41 @@ def _featurize(batch):
     return xp, xh
 
 
-def make_haplotype_train_step(mcfg: HaplotypeModelConfig, tcfg: TrainConfig,
-                              tx: Optimizer, use_kernels: bool):
-    """-> train_step(state, batch, generator, freeze_on) -> metrics, with
-    `batch` a dict of device tensors (read matrices, reference codes,
-    gt, zy); updates `state` in place."""
+def make_haplotype_step(mcfg: HaplotypeModelConfig, tcfg: TrainConfig,
+                        tx: Optimizer, use_kernels: bool):
+    """-> step(state, batch, generator, row) -> metrics, with `batch` a
+    dict of device tensors (read matrices, reference codes, gt, zy) and
+    `row` a row of the optimizer's scalar table: one update of `state` in
+    place; the counts do not move (train_pileup.make_pileup_step)."""
     smoothing = tcfg.optim.label_smoothing
     is_frozen = freeze_mask_fn(tuple(tcfg.freeze_prefixes))
 
-    def train_step(state: TrainState, batch,
-                   generator: Optional[torch.Generator],
-                   freeze_on: float = 0.0) -> Dict[str, torch.Tensor]:
+    def step(state: TrainState, batch, generator: Optional[torch.Generator],
+             row: torch.Tensor) -> Dict[str, torch.Tensor]:
         xp, xh = _featurize(batch)
         gt, zy = state.model.forward_train(xp, xh, use_kernels=use_kernels,
                                            generator=generator)
         loss, metrics = _head_metrics(gt, zy, batch["gt"], batch["zy"],
                                       smoothing)
-        apply_gradients(state, tx, loss, is_frozen, freeze_on)
+        apply_gradients(state, tx, loss, is_frozen, row)
         return metrics
+
+    return step
+
+
+def make_haplotype_train_step(mcfg: HaplotypeModelConfig, tcfg: TrainConfig,
+                              tx: Optimizer, use_kernels: bool):
+    """-> train_step(state, batch, generator, freeze_on) -> metrics: one
+    step (`make_haplotype_step` as a group of one), updating `state` in
+    place."""
+    step = make_haplotype_step(mcfg, tcfg, tx, use_kernels)
+
+    def train_step(state: TrainState, batch,
+                   generator: Optional[torch.Generator],
+                   freeze_on: float = 0.0) -> Dict[str, torch.Tensor]:
+        return single_step(tx, state,
+                           lambda row: step(state, batch, generator, row),
+                           freeze_on, batch["gt"].device)
 
     return train_step
 
@@ -66,30 +86,42 @@ def make_haplotype_eval_step(mcfg: HaplotypeModelConfig, tcfg: TrainConfig):
     return eval_step
 
 
-def _device_batch(batch, device):
+def _host_batch(batch):
     """Read matrices and reference codes ship as int8 (clipped to
     [-128, 127], as the JAX trainer does); the featurizer casts to f32 on
     the device. 4x less host-to-device traffic."""
     return {
-        k: torch.from_numpy(
-            np.clip(np.asarray(v), -128, 127).astype(np.int8)
-            if v.dtype.kind in "fiu" and k not in ("gt", "zy")
-            else np.asarray(v)).to(device)
+        k: np.clip(np.asarray(v), -128, 127).astype(np.int8)
+        if v.dtype.kind in "fiu" and k not in ("gt", "zy") else np.asarray(v)
         for k, v in batch.items()
     }
+
+
+def _device_batch(batch, device):
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in _host_batch(batch).items()}
 
 
 class _HaplotypeTrainer(Trainer):
     def __init__(self, mcfg, tcfg, init_params, *args):
         super().__init__("train_haplotype", HaplotypeModel, mcfg, tcfg,
                          init_params, *args)
-        self._step = make_haplotype_train_step(mcfg, tcfg, self.tx,
-                                               self.use_kernels)
+        self._step = make_haplotype_step(mcfg, tcfg, self.tx,
+                                         self.use_kernels)
         self._eval = make_haplotype_eval_step(mcfg, tcfg)
 
-    def run_step(self, batch, freeze_on):
-        return self._step(self.state, _device_batch(batch, self.dev),
-                          self.generator, freeze_on)
+    def host_batch(self, batch):
+        return _host_batch(batch)
+
+    def buffer_key(self, batch):
+        # training on the repeated tail rows of a tiled remainder is
+        # intended (static batch shapes); "_n" matters only to validation
+        batch = dict(batch)
+        batch.pop("_n", None)
+        return tuple(sorted((k, v.shape) for k, v in batch.items())), batch
+
+    def train_step(self, batch, row):
+        return self._step(self.state, batch, self.generator, row)
 
     def run_eval(self, batch):
         batch = dict(batch)
@@ -123,46 +155,15 @@ def train_haplotype(
     gt/zy labels) or data.EPOCH_END sentinels, on `device` (the card by
     default; raises without one).
 
-    Batches come in depth buckets. The JAX trainer buffers them per shape
-    and runs each full buffer of steps_per_call batches as one dispatch;
-    this loop keeps the same buffering, so its steps run in the same
-    order, and runs the buffered batches as single steps."""
-    from .data import EPOCH_END
-
+    Batches come in depth buckets. As the JAX trainer, it buffers them
+    per shape and runs each full buffer of steps_per_call batches as one
+    group of sequential steps (`Trainer.fit`, train/group.py), so its
+    steps run in the JAX order."""
     if init_params is None:
         init_params = init_haplotype_params(
             torch.Generator().manual_seed(tcfg.seed), mcfg)
     tr = _HaplotypeTrainer(mcfg, tcfg, init_params, device, use_kernels,
                            steps_per_epoch, lr_steps_per_epoch, out_dir,
                            resume_from, log_every)
-    group = tcfg.steps_per_call if steps_per_epoch is None else 1
-    bufs: Dict[tuple, list] = {}
-
-    def flush(key):
-        for b in bufs.pop(key, []):
-            tr.step(b)
-
-    def flush_all():
-        for key in list(bufs):
-            flush(key)
-
-    for batch in data_iter:
-        if batch is EPOCH_END:
-            flush_all()
-            tr.end_epoch(val_iter_factory, eval_fn)
-            continue
-        # training on the repeated tail rows of a tiled remainder is
-        # intended (static batch shapes); "_n" matters only to validation
-        batch = dict(batch)
-        batch.pop("_n", None)
-        key = tuple(sorted((k, v.shape) for k, v in batch.items()))
-        bufs.setdefault(key, []).append(batch)
-        if len(bufs[key]) >= max(group, 1):
-            flush(key)
-        if steps_per_epoch and tr.state.step \
-                and tr.state.step % steps_per_epoch == 0:
-            tr.end_epoch(val_iter_factory, eval_fn)
-        if max_steps and tr.state.step >= max_steps:
-            break
-    flush_all()
-    return tr.finish()
+    return tr.fit(data_iter, steps_per_epoch, max_steps, val_iter_factory,
+                  eval_fn)

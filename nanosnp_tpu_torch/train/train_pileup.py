@@ -24,9 +24,16 @@ global batches and training on its `shard_rows` slice, parameters
 broadcast from rank 0 once, gradients averaged over ranks before each
 update, epoch meters summed over ranks; every rank validates on the whole
 set, and rank 0 alone writes files.
+
+Batches are buffered as the JAX trainer buffers them and each full buffer
+of `steps_per_call` runs as one group (train/group.py): one CUDA graph
+replay on the card, eager steps under several ranks, on the CPU and for
+a partial buffer. `max_steps` is checked after each batch, so a run may
+overshoot it to the end of a group, as in JAX.
 """
 from __future__ import annotations
 
+import json
 import os
 import pickle
 import time
@@ -47,11 +54,13 @@ from ..parallel.launch import barrier, host_plan, local_device
 from ..parallel.mesh import (all_reduce_mean, all_reduce_sum,
                              broadcast_params, shard_rows, world)
 from .losses import label_smoothing_loss
+from .group import GroupRunner
 from .metrics import ConfusionAccumulator, MetricsLogger
 from .optim import Optimizer, build_optimizer
 
 __all__ = ["TrainState", "EpochMeter", "freeze_mask_fn", "init_state",
-           "make_pileup_train_step", "make_pileup_eval_step", "train_pileup",
+           "make_pileup_step", "make_pileup_train_step",
+           "make_pileup_eval_step", "train_pileup",
            "save_checkpoint", "load_checkpoint", "resume_state",
            "save_params_npz", "load_params_npz"]
 
@@ -89,19 +98,29 @@ def freeze_mask_fn(freeze_prefixes: Tuple[str, ...]):
 
 
 def apply_gradients(state: TrainState, tx: Optimizer, loss: torch.Tensor,
-                    is_frozen, freeze_on: float) -> None:
+                    is_frozen, row: torch.Tensor) -> None:
     """Gradients of `loss` with respect to the fast params (zero for a
     leaf the loss does not reach, such as the unused indel heads, as
     jax.grad gives), averaged over the ranks of a data-parallel run, then
-    one optimizer update in place."""
+    one optimizer update in place with the scalars of `row` (a row of
+    tx.scalar_table on the device; the counts do not move)."""
     flat = flatten_tree(state.model.tree())
     params = [p for _, p in flat]
     grads = all_reduce_mean(torch.autograd.grad(
         loss, params, allow_unused=True, materialize_grads=True))
-    scales = [1.0 - freeze_on if is_frozen(path) else 1.0 for path, _ in flat]
     slow = None if state.slow is None else [
         p for _, p in flatten_tree(state.slow)]
-    tx.step(params, grads, state.opt_state, slow, scales)
+    tx.update(params, grads, state.opt_state, row, slow,
+              [is_frozen(path) for path, _ in flat])
+
+
+def single_step(tx: Optimizer, state: TrainState, step, freeze_on: float,
+                device: torch.device) -> Dict[str, torch.Tensor]:
+    """step(row) as one update: the one-row scalar table, then the counts
+    advance (the group of one step)."""
+    metrics = step(tx.first_row(state.opt_state, freeze_on, device))
+    tx.advance(state.opt_state, 1)
+    return metrics
 
 
 def _head_metrics(gt, zy, gt_target, zy_target, smoothing):
@@ -115,23 +134,43 @@ def _head_metrics(gt, zy, gt_target, zy_target, smoothing):
                   "gt_pred": gt_pred, "zy_pred": zy.argmax(-1)}
 
 
+def make_pileup_step(mcfg: PileupModelConfig, tcfg: TrainConfig,
+                     tx: Optimizer, use_kernels: bool):
+    """-> step(state, batch, generator, row) -> metrics: one update of
+    `state` in place from `batch` (x, gt, zy device tensors) with the
+    optimizer scalars of `row`; the counts do not move (the group runner,
+    train/group.py, moves them). `generator` draws the dropout masks
+    (None: no dropout)."""
+    smoothing = tcfg.optim.label_smoothing
+    is_frozen = freeze_mask_fn(tuple(tcfg.freeze_prefixes))
+
+    def step(state: TrainState, batch, generator: Optional[torch.Generator],
+             row: torch.Tensor) -> Dict[str, torch.Tensor]:
+        gt, zy = state.model.forward_train(batch["x"],
+                                           use_kernels=use_kernels,
+                                           generator=generator)
+        loss, metrics = _head_metrics(gt, zy, batch["gt"], batch["zy"],
+                                      smoothing)
+        apply_gradients(state, tx, loss, is_frozen, row)
+        return metrics
+
+    return step
+
+
 def make_pileup_train_step(mcfg: PileupModelConfig, tcfg: TrainConfig,
                            tx: Optimizer, use_kernels: bool):
     """-> train_step(state, x, gt_target, zy_target, generator, freeze_on)
-    -> metrics; updates `state` in place. `generator` draws the dropout
-    masks (None: no dropout)."""
-    smoothing = tcfg.optim.label_smoothing
-    is_frozen = freeze_mask_fn(tuple(tcfg.freeze_prefixes))
+    -> metrics: one step (`make_pileup_step` as a group of one), updating
+    `state` in place."""
+    step = make_pileup_step(mcfg, tcfg, tx, use_kernels)
 
     def train_step(state: TrainState, x, gt_target, zy_target,
                    generator: Optional[torch.Generator],
                    freeze_on: float = 0.0) -> Dict[str, torch.Tensor]:
-        gt, zy = state.model.forward_train(x, use_kernels=use_kernels,
-                                           generator=generator)
-        loss, metrics = _head_metrics(gt, zy, gt_target, zy_target,
-                                      smoothing)
-        apply_gradients(state, tx, loss, is_frozen, freeze_on)
-        return metrics
+        batch = {"x": x, "gt": gt_target, "zy": zy_target}
+        return single_step(tx, state,
+                           lambda row: step(state, batch, generator, row),
+                           freeze_on, x.device)
 
     return train_step
 
@@ -192,9 +231,10 @@ def _host(a) -> np.ndarray:
 
 class Trainer:
     """What train_pileup and train_haplotype share: device, state,
-    dropout generator, epoch bookkeeping, validation and checkpoints. A
-    subclass supplies the model-specific parts: `run_step`, `run_eval` and
-    `labels`.
+    dropout generator, the loop that buffers batches into groups of
+    steps (`fit`, `GroupRunner`), epoch bookkeeping, validation and
+    checkpoints. A subclass supplies the model-specific parts:
+    `train_step`, `host_batch`, `buffer_key`, `run_eval` and `labels`.
 
     In a data-parallel run (a process group of several ranks) the rank
     trains on its slice of each global batch on its own device; rank 0
@@ -241,10 +281,26 @@ class Trainer:
         self.meter = EpochMeter(mcfg.gt_num_class, mcfg.zy_num_class)
         self.best_metric = float("-inf")
         self.freeze = 0.0
+        # the JAX trainers group steps only when epochs are marked in the
+        # data (steps_per_epoch None)
+        self.groups = GroupRunner(
+            self.train_step, self.tx, self.state, self.generator, self.dev,
+            tcfg.steps_per_call if steps_per_epoch is None else 1)
         self.t0 = time.monotonic()
 
-    def run_step(self, batch, freeze_on: float) -> Dict[str, torch.Tensor]:
-        """One optimizer step on a host batch -> its metrics."""
+    def train_step(self, batch: Dict[str, torch.Tensor],
+                   row: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """One update from a batch of device tensors (`host_batch`'s
+        arrays) and a row of the optimizer's scalar table -> its
+        metrics."""
+        raise NotImplementedError
+
+    def host_batch(self, batch) -> Dict[str, np.ndarray]:
+        """The arrays of a batch as they ship to the device."""
+        raise NotImplementedError
+
+    def buffer_key(self, batch):
+        """-> (the buffer a batch joins, the batch as buffered)."""
         raise NotImplementedError
 
     def run_eval(self, batch):
@@ -255,22 +311,62 @@ class Trainer:
         """(gt, zy) of a host batch."""
         raise NotImplementedError
 
-    def step(self, batch) -> None:
+    def run_group(self, batches) -> None:
+        """The buffered host batches as one group of steps (this rank's
+        rows of each in a data-parallel run), then the meter and the
+        progress line from the group's metrics."""
         if self.world > 1:
-            batch = _rows(batch, shard_rows(
-                len(batch["gt"] if isinstance(batch, dict) else batch[0]),
-                self.rank, self.world))
-        metrics = self.run_step(batch, self.freeze)
-        self.state.step += 1
-        gt_true, zy_true = self.labels(batch)
-        self.meter.update(metrics["loss"], metrics["gt_pred"], gt_true,
-                          metrics["zy_pred"], zy_true)
-        if self.state.step % self.log_every < 1 and self.rank == 0:
+            batches = [_rows(b, shard_rows(len(self.labels(b)[0]),
+                                           self.rank, self.world))
+                       for b in batches]
+        m = self.groups.run([self.host_batch(b) for b in batches],
+                            self.freeze)
+        self.state.step += len(batches)
+        for i, b in enumerate(batches):
+            gt_true, zy_true = self.labels(b)
+            self.meter.update(m["loss"][i], m["gt_pred"][i], gt_true,
+                              m["zy_pred"][i], zy_true)
+        if self.state.step % self.log_every < self.groups.group \
+                and self.rank == 0:
             dt = time.monotonic() - self.t0
             print(f"[{self.name}] step {self.state.step} "
-                  f"loss {float(metrics['loss']):.4f} "
-                  f"gt_acc {float(metrics['gt_acc']):.4f} "
+                  f"loss {float(m['loss'][-1]):.4f} "
+                  f"gt_acc {float(m['gt_acc'][-1]):.4f} "
                   f"({self.state.step / dt:.1f} steps/s)")
+
+    def fit(self, data_iter: Iterator, steps_per_epoch: Optional[int],
+            max_steps: Optional[int], val_iter_factory,
+            eval_fn) -> TrainState:
+        """The JAX trainers' loop: each batch joins its buffer
+        (`buffer_key`), a full buffer runs as one group; at an EPOCH_END
+        sentinel every buffer runs, then the epoch ends (with
+        steps_per_epoch, after every that many steps); `max_steps` is
+        checked after each batch, so the run ends with the group that
+        reaches it."""
+        from .data import EPOCH_END
+
+        bufs: Dict[object, list] = {}
+
+        def flush_all():
+            for key in list(bufs):
+                self.run_group(bufs.pop(key))
+
+        for item in data_iter:
+            if item is EPOCH_END:
+                flush_all()
+                self.end_epoch(val_iter_factory, eval_fn)
+                continue
+            key, item = self.buffer_key(item)
+            bufs.setdefault(key, []).append(item)
+            if len(bufs[key]) >= self.groups.group:
+                self.run_group(bufs.pop(key))
+            if steps_per_epoch and self.state.step \
+                    and self.state.step % steps_per_epoch == 0:
+                self.end_epoch(val_iter_factory, eval_fn)
+            if max_steps and self.state.step >= max_steps:
+                break
+        flush_all()
+        return self.finish()
 
     def validate(self, val_iter_factory) -> Optional[Dict[str, float]]:
         if val_iter_factory is None:
@@ -321,6 +417,11 @@ class Trainer:
     def finish(self) -> TrainState:
         self._save("last.ckpt", include_optimizer=True,
                    generator=self.generator)
+        # every rank: the steps each route of the group runner ran
+        print(json.dumps({"train_groups": dict(
+            name=self.name, rank=self.rank, ranks=self.world,
+            steps_per_call=self.groups.group, steps=self.groups.steps,
+            graphs=self.groups.graphs)}), flush=True)
         barrier("nsp_train_done")
         return self.state
 
@@ -336,22 +437,24 @@ class _PileupTrainer(Trainer):
     def __init__(self, mcfg, tcfg, init_params, *args):
         super().__init__("train_pileup", PileupModel, mcfg, tcfg, init_params,
                          *args)
-        self._step = make_pileup_train_step(mcfg, tcfg, self.tx,
-                                            self.use_kernels)
+        self._step = make_pileup_step(mcfg, tcfg, self.tx, self.use_kernels)
         self._eval = make_pileup_eval_step(mcfg, tcfg)
 
-    def _to_dev(self, batch):
+    def host_batch(self, batch):
         x, gt, zy = batch
-        return (torch.from_numpy(np.asarray(x, np.float32)).to(self.dev),
-                torch.from_numpy(np.asarray(gt)).to(self.dev),
-                torch.from_numpy(np.asarray(zy)).to(self.dev))
+        return {"x": np.asarray(x, np.float32), "gt": np.asarray(gt),
+                "zy": np.asarray(zy)}
 
-    def run_step(self, batch, freeze_on):
-        return self._step(self.state, *self._to_dev(batch), self.generator,
-                          freeze_on)
+    def buffer_key(self, batch):
+        return (), batch        # one buffer, as the JAX trainer keeps
+
+    def train_step(self, batch, row):
+        return self._step(self.state, batch, self.generator, row)
 
     def run_eval(self, batch):
-        return (*self._eval(self.state.model, *self._to_dev(batch)),
+        b = {k: torch.from_numpy(v).to(self.dev)
+             for k, v in self.host_batch(batch).items()}
+        return (*self._eval(self.state.model, b["x"], b["gt"], b["zy"]),
                 batch[1], batch[2])
 
     def labels(self, batch):
@@ -380,27 +483,17 @@ def train_pileup(
     `lr_steps_per_epoch`, an estimate is fine). Runs on `device` (the card
     by default; raises without one).
 
-    The JAX trainer stacks up to steps_per_call batches into one dispatch;
-    that is dispatch amortisation with the semantics of as many single
-    steps, which is what this loop runs."""
-    from .data import EPOCH_END
-
+    As the JAX trainer, it buffers batches and runs each full buffer of
+    steps_per_call (without steps_per_epoch; else 1) as one group of
+    sequential steps (`Trainer.fit`, train/group.py)."""
     if init_params is None:
         init_params = init_pileup_params(
             torch.Generator().manual_seed(tcfg.seed), mcfg)
     tr = _PileupTrainer(mcfg, tcfg, init_params, device, use_kernels,
                         steps_per_epoch, lr_steps_per_epoch, out_dir,
                         resume_from, log_every)
-    for item in data_iter:
-        if item is EPOCH_END:
-            tr.end_epoch(val_iter_factory, eval_fn)
-            continue
-        tr.step(item)
-        if steps_per_epoch and tr.state.step % steps_per_epoch == 0:
-            tr.end_epoch(val_iter_factory, eval_fn)
-        if max_steps and tr.state.step >= max_steps:
-            break
-    return tr.finish()
+    return tr.fit(data_iter, steps_per_epoch, max_steps, val_iter_factory,
+                  eval_fn)
 
 
 def save_checkpoint(path: str, state: TrainState,
