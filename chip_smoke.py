@@ -28,8 +28,13 @@
            nn.LSTM in training mode and, for dW, one f32 torch.bmm
            (yardsticks only).
   phase 1c holds the inference recurrence (f32 and bf16 xp; `plan_infer`:
-           the cluster forward at the CatModel's H=256, the smem forward
-           at the pileup shape's H=64), the center + head kernel (24 and
+           the cluster forward at the CatModel's H=256 and the bf16 scan
+           route's (33, H=256), the smem forward at the pileup shape's
+           H=64), the f32 inference recurrence of the f32 scan route
+           (`plan_infer_f32`, at (33, 64), (33, 256) and (11, 256); max
+           |d| 1e-5 on hs, then timed alone and through its wrapper beside
+           its FFMA bound and cuDNN nn.LSTM in f32, TF32 off), the center
+           + head kernel (24 and
            96 head rows) and the two-layer kernel (both on 2-CTA clusters)
            against their plain versions at N = 1, 65, 3001 and 8191 (the
            tile of N=8192), each twice for the same bits; prints the smem
@@ -64,6 +69,16 @@
            route, NSP_FUSE_HEAD=1, NSP_FUSE_LAYERS=1 and a one-layer
            encoder configuration; each fused route's pileup.vcf is held
            against the default route's.
+  phase 2d the scan route (`inference.use_pallas: false`): s2-predict
+           (CLI) on phase 2b's 24k-candidate shard and the s5 stage on one
+           depth bucket of 2,048 sites (v6b weights), each with use_bf16
+           false and true, on the card and on the CPU. f32: the card's rows
+           and genotypes the CPU's, QUAL within 0.01; bf16: at least 99% of
+           the genotypes agree; the byte-identical share printed. Each card
+           run launches `lstm_recurrence_infer_f32` (f32) or
+           `lstm_recurrence_infer` (bf16) and no other kernel; s5 under the
+           default route on the same bucket launches `bilstm_inproj` and
+           `bilstm_cluster` and no other.
   phase 2c the legacy CatModel at full width: two tags of 16k-group legacy
            bins -> legacy-predict and legacy-eval (CLI, batch 8192) on the
            card, its probabilities against the kernel path's plain version
@@ -81,9 +96,10 @@
            finite, checkpoints written, and the trained pileup
            checkpoint must load and predict.
            `evaluate-haplotype` (CLI) on the training world's shards with
-           the v6b weights and with the trained last.ckpt (`bilstm_inproj`
-           and `bilstm_cluster` launched), its first shard's argmax
-           decisions on the card against the CPU's (at least 99% agree).
+           the v6b weights and with the trained last.ckpt (f32 on the scan
+           route, as the JAX CLI: `lstm_recurrence_infer_f32` launched and
+           no other kernel), its first shard's argmax decisions on the card
+           against the CPU's (at least 99.9% agree).
            Two epochs each of train-pileup with `optim.type: ranger` and
            train-haplotype with `ranger21` (the same checks). Then one
            full-width pileup step's gradients on the card are held
@@ -113,10 +129,15 @@
            against the world's truth (`eval.f1.evaluate_calls`), and
            `compare-failed` on the hets the call missed (it must keep each
            one inside the BED). `evaluate-pileup` with the fitted model on the training
-           contig's arrays, every row and `--for-evaluate` (`bilstm_stream`
-           and `bilstm_center` launched; the variant rows' argmax decisions
-           on the card against the CPU's, at least 99% agree). Last, the
-           card's busy share of one more `call` under torch.profiler.
+           contig's arrays, every row and `--for-evaluate` (f32 on the scan
+           route: `lstm_recurrence_infer_f32` launched and no other kernel;
+           the variant rows' argmax decisions on the card against the
+           CPU's, at least 99.9% agree). `call` once more under
+           `inference: {use_pallas: false, use_bf16: false}`: every stage
+           marker written, `lstm_recurrence_infer_f32` the only kernel
+           launched, its stage seconds and het-SNP recall and precision
+           beside the default route's. Last, the card's busy share of one
+           more `call` under torch.profiler.
   phase 4b on phase 4's world and fitted model: `call --contigs chrT chrC`
            in one process, then as two hosts (two child processes on
            cuda:0, gloo at 127.0.0.1 on a free port, each printing its
@@ -204,7 +225,8 @@ GROUP = 8               # the CLI's steps_per_call: steps a timed run, a
 TIME_RUNS = 3           # runs of GROUP steps timed in each turn
 REPLAY_TOL = 1e-6       # graph replay against eager steps, relative, should
                         # a library GEMM not give the same bits under capture
-AGREE_MIN = 0.99        # evaluate-*: share of argmax decisions, card vs CPU
+AGREE_MIN = 0.999       # evaluate-*: share of argmax decisions, card vs CPU
+                        # (both f32: the scan route, as the JAX CLI)
 # gradients of one step, card vs CPU, over the largest entry of each leaf:
 # both sides round h_{t-1}, dgates and dW to bf16, so a reordered f32 sum
 # can flip a rounding (2^-8 relative) and carry it through the layers
@@ -346,6 +368,8 @@ REPLACES = {
                       "accumulation) and :417 (its sum over batch tiles), "
                       "at H=256",
     "lstm_recurrence_infer": "nanosnp_tpu/ops/pallas_lstm.py:64 (_kernel)",
+    "lstm_recurrence_infer_f32": "XLA lax.scan route, nanosnp_tpu/models/"
+                                 "bilstm.py:82-97 (no Pallas kernel)",
     "bilstm_center_head": "nanosnp_tpu/ops/pallas_lstm.py:556 "
                           "(_enc_center_head_kernel)",
     "bilstm2_center": "nanosnp_tpu/ops/pallas_lstm.py:842 "
@@ -358,15 +382,28 @@ SOURCES = {"bilstm_stream": "bilstm.cu", "bilstm_center": "bilstm.cu",
            "lstm_recurrence_bwd": "lstm_train.cu",
            "lstm_dw_reduce": "lstm_train.cu",
            "lstm_recurrence_infer": "lstm_train.cu",
+           "lstm_recurrence_infer_f32": "lstm_train.cu",
            "bilstm_center_head": "bilstm_fused.cu",
            "bilstm2_center": "bilstm_fused.cu",
            "bilstm_probe": "bilstm_probe.cu"}
-# (label, N.., L, D of the cuDNN yardstick's first layer, H): the inference
-# recurrence's calls: five a CatModel batch, and the fused=False encoder
+# (label, L, D of the cuDNN yardstick's first layer, H): the inference
+# recurrence's calls: five a CatModel batch, the fused=False encoder, and
+# the bf16 scan route's layers (the pileup model's H=64 at L=33 is the
+# fused=False shape; the haplotype model's at L=33, H=256)
 INFER_SHAPES = [
     ("CatModel", 11, 256, 256),
     ("pileup fused=False", 33, 18, 64),
+    ("s5 pileup scan route", 33, 105, 256),
 ]
+# the f32 inference recurrence's calls on the f32 scan route: the pileup
+# model's layers and the haplotype model's two branches
+F32_SHAPES = [
+    ("s2 scan f32", 33, 18, 64),
+    ("s5 pileup scan f32", 33, 105, 256),
+    ("s5 haplotype scan f32", 11, 105, 256),
+]
+# f32 on both sides, nothing rounded: summation order only, through L steps
+F32_KERNEL_TOL = 1e-5
 HEAD_ROWS = (24, 96)    # gt + zy, and all four heads (rows padded to 8)
 # batch sizes of the inference recurrence's and the fused kernels' checks:
 # one row, one past a tile of 64, N_CHECK (off every tile) and N_WIDE
@@ -1265,6 +1302,7 @@ def phase_new_kernels(dev):
     two-layer kernel against their plain versions, timed beside cuDNN."""
     import torch
 
+    from nanosnp_tpu_torch.device import set_matmul_precision
     from nanosnp_tpu_torch.models.bilstm import (BiLSTM,
                                                  bilstm_encoder_fused,
                                                  bilstm_encoder_unfused,
@@ -1279,11 +1317,12 @@ def phase_new_kernels(dev):
     def u(*shape, scale=1.0):
         return (torch.rand(*shape, generator=gen, device=dev) * 2 - 1) * scale
 
-    def cudnn_ms(d_in, hidden, seq_len, layers=1, then=None):
+    def cudnn_ms(d_in, hidden, seq_len, layers=1, then=None,
+                 dtype=torch.bfloat16):
         lstm = torch.nn.LSTM(d_in, hidden, num_layers=layers,
                              batch_first=True, bidirectional=True,
-                             device=dev, dtype=torch.bfloat16)
-        x = u(N_TIME, seq_len, d_in).bfloat16()
+                             device=dev, dtype=dtype)
+        x = u(N_TIME, seq_len, d_in).to(dtype)
 
         def run():
             out, _ = lstm(x)
@@ -1296,17 +1335,18 @@ def phase_new_kernels(dev):
     rows = []
 
     def record(name, label, err, tol, kern, alone, plain, library_ms, cost,
-               **dims):
+               peak=PEAK_BF16_FLOPS, **dims):
         """kern: the wrapper, as a caller gets it (a model's packed weights
         made once, beforehand); alone: the kernel's C entry point with the
-        plan, the packed weights and the outputs made beforehand."""
+        plan, the packed weights and the outputs made beforehand; peak: the
+        card's rate for the kernel's products."""
         if not err <= tol:
             raise AssertionError(f"{name} {label}: max|d| {err} > {tol}")
         wrapper_ms = cuda_time(kern, 10)
         ms = cuda_time(alone, 10)
         plain_ms = cuda_time(plain, 2)
         flop, nbytes = cost
-        t_ops = flop / PEAK_BF16_FLOPS * 1e3
+        t_ops = flop / peak * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
         rows.append(dict(
             name=name, shape=label, **dims, max_abs_err=err, ms=ms,
@@ -1397,6 +1437,60 @@ def phase_new_kernels(dev):
                 rows[-1]["packed_ms"] = cuda_time(packed, 10)
                 log(f"[time]  the packed kernel alone at the same shape: "
                     f"{rows[-1]['packed_ms']:.3f} ms")
+
+    # ---- lstm_recurrence_infer with f32 w_hh: the f32 kernel of the f32
+    # scan route (`plan_infer_f32`) at each of its layer shapes, against its
+    # plain version (the f32 step loop on the card, TF32 off) at
+    # N_INFER_CHECK, each twice for the same bits; then timed alone and
+    # through the wrapper beside cuDNN nn.LSTM in f32 with TF32 off (a
+    # yardstick only); its bound is FFMA at the card's f32 rate
+    set_matmul_precision()
+    for label, seq_len, d_lib, hidden in F32_SHAPES:
+        w = u(2, hidden, 4 * hidden, scale=1.0 / math.sqrt(hidden))
+        err = 0.0
+        for n_check in N_INFER_CHECK:
+            xp = u(n_check, seq_len, 2, 4 * hidden, scale=3.0)
+            K.reset_launch_counts()
+            got, again = (T.lstm_recurrence_infer(xp, w),
+                          T.lstm_recurrence_infer(xp, w))
+            torch.cuda.synchronize()
+            e, _ = _errs(got, T.lstm_recurrence_infer_plain(xp, w))
+            same = torch.equal(got, again)
+            log(f"[check] lstm_recurrence_infer_f32 {label:22s} N={n_check} "
+                f"L={seq_len} H={hidden}: max|d|={e:.3e} (tol "
+                f"{F32_KERNEL_TOL}), second run the same bits: {same}, "
+                f"launches {K.LAUNCHES['lstm_recurrence_infer_f32']}")
+            if not (e <= F32_KERNEL_TOL and same
+                    and K.LAUNCHES["lstm_recurrence_infer_f32"] == 2
+                    and K.LAUNCHES["lstm_recurrence_infer"] == 0):
+                raise AssertionError(f"lstm_recurrence_infer_f32 {label} "
+                                     f"N={n_check}: {e} > {F32_KERNEL_TOL}"
+                                     " or not the same bits twice")
+            err = max(err, e)
+        xp = u(N_TIME, seq_len, 2, 4 * hidden, scale=3.0)
+        hs = torch.empty(N_TIME, seq_len, 2, hidden, device=dev)
+        plan = T.plan_infer_f32(N_TIME, seq_len, hidden)
+
+        def f32_alone(xp=xp, w=w, hs=hs, plan=plan, seq_len=seq_len,
+                      hidden=hidden):
+            return library("lstm_train").nsp_lstm_infer_f32(
+                xp.data_ptr(), w.data_ptr(), hs.data_ptr(), N_TIME, seq_len,
+                hidden, plan.bn, plan.smem, plan.grid[0], stream)
+
+        if f32_alone() != 0:
+            raise AssertionError(f"lstm_recurrence_infer_f32 {label}: a "
+                                 "launch of the kernel alone failed")
+        resident = T.infer_f32_occupancy(hidden)
+        log(f"[plan]  lstm_recurrence_infer_f32 {label}: {plan.smem} B a "
+            f"CTA, {resident} CTAs an SM resident, "
+            f"{plan.grid[0] * plan.grid[1]} CTAs")
+        record("lstm_recurrence_infer_f32", label, err, F32_KERNEL_TOL,
+               lambda xp=xp, w=w: T.lstm_recurrence_infer(xp, w), f32_alone,
+               lambda xp=xp, w=w: T.lstm_recurrence_infer_plain(xp, w),
+               cudnn_ms(d_lib, hidden, seq_len, dtype=torch.float32),
+               T.infer_f32_cost(N_TIME, seq_len, hidden),
+               peak=PEAK_F32_FLOPS, L=seq_len, H=hidden, path=plan.path,
+               smem=plan.smem, ctas_an_sm=resident)
 
     # ---- bilstm_center_head at the s2 L2 shape, then bilstm2_center at the
     # pileup encoder's (`_fused_cases`): each against its plain version at
@@ -1598,6 +1692,180 @@ def phase_routes(dev):
         want = pileup_predict(pm, xw, torch.bfloat16)
         got = pileup_predict(pm.to(dev), xw.to(dev), torch.bfloat16)
         check_probs("one-layer pileup model", got, want)
+    shutil.rmtree(WORK, ignore_errors=True)
+    return launches, rows
+
+
+# phase 2d: the scan route's kernels, and the kernels it must not launch
+SCAN_KERNELS = {False: "lstm_recurrence_infer_f32",
+                True: "lstm_recurrence_infer"}
+SCAN_HAP_SITES = 2048    # s5 sites of phase 2d: one depth bucket, one batch
+SCAN_QUAL_TOL = 0.0100001   # f32 card vs CPU: QUAL printed to 2 places
+SCAN_BF16_AGREE = 0.99      # bf16 card vs CPU: share of genotypes
+
+
+def _row_off(g, w, qual_col, gt_col):
+    """Whether row g differs from w beyond QUAL within 0.01 and, in a VCF
+    sample column GT:GQ:DP:AF, a GQ (which follows QUAL) within 1."""
+    if len(g) != len(w) or abs(float(g[qual_col])
+                               - float(w[qual_col])) > SCAN_QUAL_TOL:
+        return True
+    if any(a != b for i, (a, b) in enumerate(zip(g, w))
+           if i not in (qual_col, gt_col)):
+        return True
+    gs, ws = g[gt_col].split(":"), w[gt_col].split(":")
+    return (gs[:1] + gs[2:] != ws[:1] + ws[2:]
+            or (len(gs) > 1 and abs(int(gs[1]) - int(ws[1])) > 1))
+
+
+def compare_calls(label, got_path, want_path, gt_col, qual_col, f32):
+    """The card's output rows against the CPU's on the same inputs: f32
+    (the same arithmetic but for summation order) must give the same rows
+    and genotypes with QUAL within 0.01 (and a GQ derived from it within
+    1); bf16 (h_{t-1} rounded on both sides, where a flipped rounding can
+    move a decision) must agree on SCAN_BF16_AGREE of the genotypes. Prints
+    the byte-identical share."""
+    got = {(r[0], r[1]): r for r in _body(got_path)}
+    want = {(r[0], r[1]): r for r in _body(want_path)}
+    keys = set(got) | set(want)
+    same = sum(got.get(k) == want.get(k) for k in keys)
+    gt = sum(k in got and k in want
+             and got[k][gt_col].split(":")[0] == want[k][gt_col].split(":")[0]
+             for k in keys)
+    worst, bad = 0.0, 0
+    for k in set(got) & set(want):
+        g, w = got[k], want[k]
+        worst = max(worst, abs(float(g[qual_col]) - float(w[qual_col])))
+        bad += _row_off(g, w, qual_col, gt_col)
+    out = dict(rows=len(want), byte_identical_share=same / max(len(keys), 1),
+               genotype_agreement=gt / max(len(keys), 1),
+               max_qual_gap=worst, rows_off=bad + len(set(got) ^ set(want)))
+    log(f"[check] {label}: card vs CPU over {len(keys)} rows: "
+        f"byte-identical {out['byte_identical_share']:.5f}, genotypes agree "
+        f"{out['genotype_agreement']:.5f}, max |dQUAL| {worst:.4f}, "
+        f"{out['rows_off']} rows off")
+    if f32 and out["rows_off"]:
+        raise AssertionError(f"{label}: the f32 card rows differ from the "
+                             "CPU's")
+    if not f32 and out["genotype_agreement"] < SCAN_BF16_AGREE:
+        raise AssertionError(f"{label}: the bf16 card genotypes agree with "
+                             f"the CPU's on {out['genotype_agreement']:.5f}")
+    return out
+
+
+def phase_scan_route(dev):
+    """Phase 2d: the scan route (`use_pallas: false`) of s2-predict (CLI)
+    on phase 2b's 24k-candidate shard and of the s5 stage on one depth
+    bucket of SCAN_HAP_SITES sites, in f32 and bf16, on the card and on
+    the CPU; the card's rows against the CPU's, the launches of each run,
+    and s5 under the default route on the same bucket."""
+    import numpy as np
+    import torch
+
+    from nanosnp_tpu_torch.config import PipelineConfig
+    from nanosnp_tpu_torch.io import bins
+    from nanosnp_tpu_torch.models.convert import (load_params_npz,
+                                                  pileup_checkpoint_from_params)
+    from nanosnp_tpu_torch.models.pileup_model import init_pileup_params
+    from nanosnp_tpu_torch.ops import bilstm as K
+    from nanosnp_tpu_torch.runtime import cli, stages
+
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(WORK)
+    rng = np.random.default_rng(SEED + 4)
+    contig = "chr20"
+    fa, ref, _, _, shard_dir, pos = _pileup_world(
+        rng, WORK, contig, 1_000_000, ROUTE_CAND)
+    ckpt = os.path.join(WORK, "pileup.chkpt")
+    torch.save(pileup_checkpoint_from_params(init_pileup_params(
+        torch.Generator().manual_seed(SEED), PipelineConfig().pileup_model)),
+        ckpt)
+    hap_dir = os.path.join(WORK, "hap_shards")
+    os.makedirs(hap_dir)
+    centers = np.sort(rng.choice(pos[(pos > 200) & (pos < 1_000_000 - 200)],
+                                 SCAN_HAP_SITES, replace=False))
+    bins.save_haplotype_shard(
+        os.path.join(hap_dir, f"{contig}_d64x64.npz"), bins.HaplotypeShard(
+            contig=contig, candidate_positions=centers,
+            group_positions=centers[:, None] + np.arange(-5, 6)[None, :] * 7,
+            pileup=_read_matrices(rng, SCAN_HAP_SITES, 64, 33,
+                                  SCAN_HAP_SITES // 4),
+            haplotype=_read_matrices(rng, SCAN_HAP_SITES, 64, 11,
+                                     SCAN_HAP_SITES // 4)))
+    hparams = load_params_npz(V6B)
+
+    launches, rows = {}, {}
+
+    def run(name, fn, on_card):
+        K.reset_launch_counts()
+        t = time.monotonic()
+        fn()
+        if on_card:
+            torch.cuda.synchronize()
+        dt = time.monotonic() - t
+        if on_card:
+            launches[name] = dict(K.LAUNCHES)
+        elif sum(K.LAUNCHES.values()):
+            raise AssertionError(f"{name} launched kernels on the CPU")
+        log(f"[{name}] {dt:.3f} s" + (f", launches {launches[name]}"
+                                     if on_card else ""))
+        return dt
+
+    def expect(name, used):
+        got = {k for k, v in launches[name].items() if v}
+        if got != set(used):
+            raise AssertionError(f"{name}: launched {sorted(got)}, expected "
+                                 f"{sorted(used)}")
+
+    for bf16 in (False, True):
+        tag = "bf16" if bf16 else "f32"
+        yaml = os.path.join(WORK, f"scan_{tag}.yaml")
+        with open(yaml, "w") as f:
+            f.write(f"inference:\n  use_pallas: false\n  use_bf16: "
+                    f"{str(bf16).lower()}\n  batch_size: {SCAN_HAP_SITES}\n")
+        cfg = PipelineConfig()
+        cfg.inference.use_pallas = False
+        cfg.inference.use_bf16 = bf16
+        cfg.inference.batch_size = SCAN_HAP_SITES
+        outs = {}
+        for where, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+            name = f"s2 scan {tag} {where}"
+            out = os.path.join(WORK, name.replace(" ", "_"))
+            dt = run(name, lambda out=out, extra=extra: cli.main([
+                "s2-predict", "--shards", shard_dir, "--ref", fa,
+                "--pileup-model", ckpt, "--config", yaml, "-o", out,
+                *extra]), where == "card")
+            rows[name] = dict(sites=ROUTE_CAND, seconds=dt,
+                              sites_per_s=ROUTE_CAND / dt)
+            outs[where] = os.path.join(out, "pileup.vcf")
+        expect(f"s2 scan {tag} card", (SCAN_KERNELS[bf16],))
+        rows[f"s2 scan {tag} card"]["card_vs_cpu"] = compare_calls(
+            f"s2 scan {tag}", outs["card"], outs["cpu"], 9, 5, not bf16)
+        for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            name = f"s5 scan {tag} {where}"
+            outs[where] = os.path.join(WORK, f"s5_{tag}_{where}.csv")
+            m5 = {}
+            dt = run(name, lambda o=outs[where], d=device: m5.update(
+                stages.stage_haplotype_predict(cfg, ref, hap_dir, o, hparams,
+                                               device=d)), where == "card")
+            rows[name] = dict(sites=m5["sites"], seconds=dt,
+                              sites_per_s=m5["sites"] / dt,
+                              deferred=m5.get("deferred"))
+            if m5["sites"] != SCAN_HAP_SITES or not m5.get("deferred"):
+                raise AssertionError(f"{name}: {m5}")
+        expect(f"s5 scan {tag} card", (SCAN_KERNELS[bf16],))
+        rows[f"s5 scan {tag} card"]["card_vs_cpu"] = compare_calls(
+            f"s5 scan {tag}", outs["card"], outs["cpu"], 2, 3, not bf16)
+    # the default route on the same bucket launches the kernel route's
+    # H=256 kernels and no inference recurrence
+    cfg = PipelineConfig()
+    cfg.inference.batch_size = SCAN_HAP_SITES
+    run("s5 default card", lambda: stages.stage_haplotype_predict(
+        cfg, ref, hap_dir, os.path.join(WORK, "s5_default.csv"), hparams,
+        device=dev), True)
+    expect("s5 default card", ("bilstm_inproj", "bilstm_cluster"))
+    for k, v in rows.items():
+        log(f"[{k}] " + json.dumps(v))
     shutil.rmtree(WORK, ignore_errors=True)
     return launches, rows
 
@@ -1881,7 +2149,7 @@ def _train_records(run_dir, epochs=2):
 def _evaluate(name, argv, report, kernels):
     """An evaluate-* command through the CLI on the card: launch counts,
     wall seconds and sites/s, its report. Each kernel in `kernels` must
-    have been launched."""
+    have been launched, and no other."""
     import torch
 
     from nanosnp_tpu_torch.ops import bilstm as K
@@ -1904,6 +2172,9 @@ def _evaluate(name, argv, report, kernels):
     for k in kernels:
         if counts[k] <= 0:
             raise AssertionError(f"{name}: {k} was never launched")
+    others = {k for k, v in counts.items() if v} - set(kernels)
+    if others:
+        raise AssertionError(f"{name}: launched {sorted(others)} too")
     if not rep["n"] > 0:
         raise AssertionError(f"{name}: scored no site")
     return row, counts
@@ -2021,7 +2292,7 @@ def phase_train(dev):
         rows[name], launches[name] = _evaluate(
             name, ev_args + ["--model", model, "-o", os.path.join(
                 WORK, name.replace(" ", "_"))], "evaluate_haplotype.json",
-            ("bilstm_inproj", "bilstm_cluster"))
+            ("lstm_recurrence_infer_f32",))
     # card against CPU, the first shard: the command's own batches
     ref = FastaReference(os.path.join(WORK, "ref.fa"))
     truth = E.truth_arrays(ref, os.path.join(WORK, "truth.vcf"),
@@ -2468,10 +2739,14 @@ def phase_call(dev):
     # PASS het rows of merge.vcf scored by the port's eval.f1 on position
     # and alleles
     het_truth = [t for t in truth["chrC"] if not t.hom]
-    called = ["\t".join(r) + "\n" for r in merged
-              if r[6] == "PASS" and r[9].split(":")[0] in ("0/1", "1/0")]
-    f1 = evaluate_calls(called, truth_vcf_lines("chrC", het_truth),
-                        genotype_aware=False, snv_only=False)
+
+    def het_f1(merged):
+        called = ["\t".join(r) + "\n" for r in merged
+                  if r[6] == "PASS" and r[9].split(":")[0] in ("0/1", "1/0")]
+        return called, evaluate_calls(called, truth_vcf_lines(
+            "chrC", het_truth), genotype_aware=False, snv_only=False)
+
+    called, f1 = het_f1(merged)
     if (f1.tp + f1.fp, f1.tp + f1.fn) != (len(called), len(het_truth)):
         raise AssertionError(f"eval.f1 counted {f1.summary()} of "
                              f"{len(called)} calls, {len(het_truth)} hets")
@@ -2541,12 +2816,40 @@ def phase_call(dev):
         rows[name], launches[name] = _evaluate(
             name, ev + extra + ["-o", os.path.join(
                 WORK, name.replace(" ", "_"))] + dev_args,
-            "evaluate_pileup.json", ("bilstm_stream", "bilstm_center"))
+            "evaluate_pileup.json", ("lstm_recurrence_infer_f32",))
     rows["evaluate-pileup --for-evaluate"]["card_vs_cpu"] = check_agreement(
         "evaluate-pileup --for-evaluate", *[
             list(E.pileup_scores(PipelineConfig(), fitted, os.path.join(
                 out, "train_data"), True, 2000, d))
             for d in (dev, torch.device("cpu"))])
+
+    # `call` once more on the strict-parity route (use_pallas false,
+    # use_bf16 false): every stage, the encoders on the f32 kernel and no
+    # kernel of the kernel route; its stage seconds and het SNPs beside the
+    # default route's
+    f32_yaml = os.path.join(WORK, "scan_f32.yaml")
+    with open(f32_yaml, "w") as f:
+        f.write("inference:\n  use_pallas: false\n  use_bf16: false\n")
+    run_f32 = os.path.join(WORK, "run_scan_f32")
+    wall_f32 = timed("call scan f32", call + ["-o", run_f32, "--config",
+                                              f32_yaml] + dev_args)
+    marks_f32 = _stage_markers(run_f32)
+    used = {k for k, v in launches["call scan f32"].items() if v}
+    if dev.type == "cuda" and used != {"lstm_recurrence_infer_f32"}:
+        raise AssertionError(f"call scan f32 launched {sorted(used)}")
+    merged_f32 = _body(os.path.join(run_f32, "merge.vcf"))
+    _, f1_f32 = het_f1(merged_f32)
+    rows["call scan f32"] = dict(
+        wall_seconds=wall_f32,
+        stage_seconds={st: marks_f32[st]["seconds"] for st in CALL_STAGES},
+        merge_rows=len(merged_f32), het_recall=f1_f32.recall,
+        het_precision=f1_f32.precision,
+        default_route=dict(wall_seconds=wall, stage_seconds=sec,
+                           het_recall=f1.recall,
+                           het_precision=f1.precision))
+    log("[call scan f32] " + json.dumps(rows["call scan f32"]))
+    if not merged_f32:
+        raise AssertionError("call scan f32: merge.vcf empty")
 
     # a second call on the same output resumes and runs no stage
     dt = timed("call: resume", call + ["-o", run] + dev_args)
@@ -3270,6 +3573,7 @@ def main() -> int:
     launches.update(probe_launches)
     log(f"[phase 1d] {time.monotonic() - t0:.1f} s")
     for label, phase in (("2", phase_slice), ("2b", phase_routes),
+                         ("2d", phase_scan_route),
                          ("2c", phase_legacy), ("3", phase_train),
                          ("4", phase_call), ("4b", phase_multihost)):
         t0 = time.monotonic()

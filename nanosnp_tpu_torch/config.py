@@ -163,12 +163,17 @@ class TrainConfig:
 @dataclass
 class InferenceConfig:
     batch_size: int = 8192          # device batch per step
-    # bf16 operands (f32 accumulation) in the heads, and on the CPU in the
-    # encoder too; False runs the CPU encoder as the f32 reference loop.
-    # On the card the encoder always runs the bf16 BiLSTM kernels.
+    # The compute dtype of s2 and s5: bf16 operands (f32 accumulation) in
+    # the heads, the s5 features and the scan route's encoders; False is
+    # f32 throughout (with use_pallas false, the strict-parity route). The
+    # kernel route's encoder is bf16 whatever this says, as the JAX
+    # package's Pallas encoder. evaluate-* compute in f32 regardless.
     use_bf16: bool = True
-    # Accepted so that configs/default.yaml loads; it does nothing in the
-    # port: the BiLSTM kernels run exactly when the tensors are on the card.
+    # The encoder route of s2 and s5 (runtime/stages.resolve_use_pallas):
+    # "auto" takes the BiLSTM kernels on the card and the scan route on the
+    # CPU; true the kernels (their plain versions on the CPU); false the
+    # scan route in the compute dtype (the inference recurrence kernels on
+    # the card). models/bilstm.py has the table.
     use_pallas: str = "auto"
     # Replicate the reference decoder's gt_output[ti] indexing quirk
     # (PileupModel/predict.py:107,119,151,163) for bit-identical VCFs.

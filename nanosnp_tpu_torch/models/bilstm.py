@@ -6,9 +6,15 @@ a copy): per layer `w_ih` [2, D, 4H] and `w_hh` [2, H, 4H] (x @ w, the
 direction stacked first), one folded bias `b` [2, 4H] = b_ih + b_hh, gate
 order i, f, g, o. Dense layers keep `w` [in, out] and `b` [out].
 
-Four encoders:
+Five encoders:
   bilstm_encoder        the f32 step loop, equal to the JAX lax.scan path
                         with compute_dtype=float32 (the CPU reference);
+  bilstm_encoder_scan   the scan route, the JAX package's bilstm_encoder(
+                        ..., compute_dtype, use_pallas=False): per layer one
+                        f32 in-projection product of compute-dtype operands,
+                        xp kept in f32, then the inference recurrence with
+                        w_hh in the compute dtype (the bf16 kernels, or the
+                        f32 kernel, on the card);
   bilstm_encoder_fused  the kernel path, mirroring the JAX package's
                         bilstm_encoder_pallas: one fused in-projection +
                         recurrence kernel per layer, bf16 activations
@@ -27,6 +33,25 @@ Four encoders:
                         recurrence (the training kernels with bf16 w_hh, or
                         the f32 step loop under autograd), dropout between
                         layers.
+
+The serving stages pick the route from `inference.use_pallas`
+(runtime/stages.resolve_use_pallas, the JAX package's
+_resolve_use_pallas) and hand it to the models as `route`:
+
+  use_pallas     device  route      encoder
+  auto, true     card    "kernels"  bilstm_encoder_fused (NSP_FUSE_HEAD
+                                    and NSP_FUSE_LAYERS honored)
+  true           CPU     "kernels"  bilstm_encoder_fused's plain versions
+                                    (what the card's kernel route computes)
+  auto, false    CPU     "scan"     bilstm_encoder_scan in the compute dtype
+                                    (the JAX package on the CPU)
+  false          card    "scan"     bilstm_encoder_scan in the compute dtype
+                                    on the inference recurrence kernels
+
+Under "scan" NSP_FUSE_HEAD and NSP_FUSE_LAYERS do nothing, as the JAX
+package reads them only under use_pallas. A model called without a route
+(route None) keeps the behaviour it had before routes: the kernels on the
+card and, on the CPU, their plain versions in bf16 or the f32 loop in f32.
 """
 from __future__ import annotations
 
@@ -237,14 +262,53 @@ def bilstm_encoder_unfused(layers: Iterable[BiLSTMLayer], x: torch.Tensor,
     return hs[:, seq_len // 2] if center_only else hs
 
 
+@torch.no_grad()
+def bilstm_encoder_scan(layers: Iterable[BiLSTMLayer], x: torch.Tensor,
+                        compute_dtype: torch.dtype = torch.float32,
+                        center_only: bool = False) -> torch.Tensor:
+    """The scan route. Per layer: x cast to the compute dtype; xp = x w_ih
+    + b, one product over every timestep and both directions (the
+    directions' w_ih side by side), compute-dtype operands held in f32
+    tensors so that the sum is f32 (TF32 off), and xp left in f32 (the
+    JAX package's einsum with preferred_element_type f32: no bf16 rounding
+    of xp, unlike bilstm_encoder_unfused); then `lstm_recurrence_infer` on
+    xp with w_hh in the compute dtype (bf16: h_{t-1} rounded to bf16 before
+    the product, f32 accumulation; f32: nothing rounded). x [N, L, D] ->
+    [N, L, 2H] f32, or [N, 2H] f32 (t = L//2) when center_only."""
+    n, seq_len, _ = x.shape
+    out = x
+    for layer in layers:
+        hidden = layer.hidden
+        w_ih = layer.w_ih.permute(1, 0, 2).reshape(-1, 8 * hidden)
+        xp = (out.to(compute_dtype).float() @ w_ih.to(compute_dtype).float()
+              + layer.b.float().reshape(8 * hidden))
+        hs = lstm_recurrence_infer(
+            xp.view(n, seq_len, 2, 4 * hidden),
+            layer.w_hh.to(compute_dtype).contiguous())
+        out = hs.view(n, seq_len, 2 * hidden)
+    return out[:, seq_len // 2] if center_only else out
+
+
+ROUTES = ("kernels", "scan")
+
+
 def encoder_center(layers: Iterable[BiLSTMLayer], x: torch.Tensor,
-                   compute_dtype: torch.dtype) -> torch.Tensor:
-    """Window-center state [N, 2H] f32. On the card the encoder always runs
-    the bf16 kernels, as the JAX package always runs its Pallas kernels on
-    the TPU. On the CPU, compute_dtype bf16 runs the kernels' plain
-    versions and f32 runs the f32 reference loop."""
-    if x.is_cuda or compute_dtype == torch.bfloat16:
+                   compute_dtype: torch.dtype,
+                   route: Optional[str] = None) -> torch.Tensor:
+    """Window-center state [N, 2H] f32 by `route` (the table of the module
+    docstring): "kernels" the bf16 kernel encoder (its plain versions on
+    the CPU), "scan" the scan route in the compute dtype. None keeps the
+    behaviour from before routes: the kernels on the card and for bf16 on
+    the CPU, the f32 reference loop for f32 on the CPU."""
+    if route is None:
+        route = ("kernels" if x.is_cuda or compute_dtype == torch.bfloat16
+                 else "f32 loop")
+    elif route not in ROUTES:
+        raise ValueError(f"route {route!r}: expected one of {ROUTES}")
+    if route == "kernels":
         return bilstm_encoder_fused(layers, x, center_only=True)
+    if route == "scan":
+        return bilstm_encoder_scan(layers, x, compute_dtype, center_only=True)
     return bilstm_encoder(layers, x)[:, x.shape[1] // 2]
 
 

@@ -3,7 +3,8 @@
 dense, gt(10)/zy(3) heads.
 
 Counterpart of nanosnp_tpu/models/haplotype_model.py, inputs feature-last
-[N, L, 105], center sliced before the head.
+[N, L, 105], center sliced before the head. Both encoders take `route`
+(models/bilstm.py's table).
 """
 from __future__ import annotations
 
@@ -36,14 +37,15 @@ class HaplotypeModel(nn.Module):
 
     @torch.no_grad()
     def forward(self, pileup_x: torch.Tensor, haplotype_x: torch.Tensor,
-                compute_dtype: torch.dtype = torch.float32):
+                compute_dtype: torch.dtype = torch.float32,
+                route: Optional[str] = None):
         """pileup_x [N, 33, 105], haplotype_x [N, 11, 105] -> (gt, zy)
         logits. Inference only (no gradient: the serving kernels have no
         backward); training runs forward_train."""
         ctr_p = encoder_center(self.pileup_encoder.layers, pileup_x,
-                               compute_dtype)
+                               compute_dtype, route)
         ctr_h = encoder_center(self.haplotype_encoder.layers, haplotype_x,
-                               compute_dtype)
+                               compute_dtype, route)
         feat = torch.cat([self.pileup_proj(ctr_p, compute_dtype),
                           self.haplotype_proj(ctr_h, compute_dtype)], dim=-1)
         feat = torch.tanh(self.dense(feat, compute_dtype))         # [N, 256]
@@ -95,11 +97,15 @@ def init_haplotype_params(gen: torch.Generator,
 
 
 def haplotype_forward(model: HaplotypeModel, pileup_x, haplotype_x, *,
-                      compute_dtype: torch.dtype = torch.float32):
-    return model(pileup_x, haplotype_x, compute_dtype=compute_dtype)
+                      compute_dtype: torch.dtype = torch.float32,
+                      route: Optional[str] = None):
+    return model(pileup_x, haplotype_x, compute_dtype=compute_dtype,
+                 route=route)
 
 
 def haplotype_predict(model: HaplotypeModel, pileup_x, haplotype_x,
-                      compute_dtype: torch.dtype = torch.float32):
-    gt, zy = model(pileup_x, haplotype_x, compute_dtype=compute_dtype)
+                      compute_dtype: torch.dtype = torch.float32,
+                      route: Optional[str] = None):
+    gt, zy = model(pileup_x, haplotype_x, compute_dtype=compute_dtype,
+                   route=route)
     return torch.softmax(gt, dim=-1), torch.softmax(zy, dim=-1)

@@ -6,7 +6,9 @@ center is sliced before the head: proj and dense are pointwise over time,
 so applying them once at the center is the same math with 33x fewer head
 FLOPs. The head is plain products outside any kernel, unless
 NSP_FUSE_HEAD=1 (the JAX package's variable, read at call time) asks the
-last encoder layer's kernel to apply it.
+last encoder layer's kernel to apply it on the kernel route. The encoder's
+route is `route` (models/bilstm.py's table; None: the kernels on the card
+and for bf16 on the CPU, else the f32 loop).
 """
 from __future__ import annotations
 
@@ -40,12 +42,13 @@ class PileupModel(nn.Module):
     @torch.no_grad()
     def forward(self, x: torch.Tensor,
                 compute_dtype: torch.dtype = torch.float32,
-                all_heads: bool = True):
+                all_heads: bool = True, route: Optional[str] = None):
         """x [N, 33, 18] -> (gt, zy, id1, id2) logits (id* None unless
         all_heads). Inference only (no gradient: the serving kernels have
         no backward); training runs forward_train."""
         names = HEADS if all_heads else HEADS[:2]
-        kernel_path = x.is_cuda or compute_dtype == torch.bfloat16
+        kernel_path = route == "kernels" or (route is None and (
+            x.is_cuda or compute_dtype == torch.bfloat16))
         if kernel_path and os.environ.get("NSP_FUSE_HEAD", "0") == "1":
             head, head_packed = self.fused_head(names)
             logits = bilstm_encoder_fused(self.encoder.layers, x,
@@ -54,7 +57,7 @@ class PileupModel(nn.Module):
             sizes = [self.heads[k].w.shape[1] for k in names]
             outs = logits[:, :sum(sizes)].split(sizes, dim=1)
             return tuple(outs) + (None,) * (4 - len(outs))
-        ctr = encoder_center(self.encoder.layers, x, compute_dtype)
+        ctr = encoder_center(self.encoder.layers, x, compute_dtype, route)
         feat = self.proj(ctr, compute_dtype)                       # [N, 128]
         feat = torch.tanh(self.dense(feat, compute_dtype))         # [N, 256]
         outs = [self.heads[k](feat, compute_dtype) for k in names]
@@ -126,12 +129,15 @@ def init_pileup_params(gen: torch.Generator, cfg: PileupModelConfig) -> dict:
 
 def pileup_forward(model: PileupModel, x: torch.Tensor, *,
                    compute_dtype: torch.dtype = torch.float32,
-                   all_heads: bool = True):
-    return model(x, compute_dtype=compute_dtype, all_heads=all_heads)
+                   all_heads: bool = True, route: Optional[str] = None):
+    return model(x, compute_dtype=compute_dtype, all_heads=all_heads,
+                 route=route)
 
 
 def pileup_predict(model: PileupModel, x: torch.Tensor,
-                   compute_dtype: torch.dtype = torch.float32):
+                   compute_dtype: torch.dtype = torch.float32,
+                   route: Optional[str] = None):
     """Softmaxed gt/zy probabilities (reference model.predict)."""
-    gt, zy, _, _ = model(x, compute_dtype=compute_dtype, all_heads=False)
+    gt, zy, _, _ = model(x, compute_dtype=compute_dtype, all_heads=False,
+                         route=route)
     return torch.softmax(gt, dim=-1), torch.softmax(zy, dim=-1)

@@ -52,6 +52,7 @@ LAUNCHES: Dict[str, int] = {"bilstm_stream": 0, "bilstm_center": 0,
                             "lstm_recurrence_train": 0,
                             "lstm_recurrence_bwd": 0, "lstm_dw_reduce": 0,
                             "lstm_recurrence_infer": 0,
+                            "lstm_recurrence_infer_f32": 0,
                             "bilstm_center_head": 0, "bilstm2_center": 0,
                             "bilstm_probe": 0}
 

@@ -89,6 +89,11 @@ SOURCES: Dict[str, Dict[str, List]] = {
         "nsp_lstm_infer_smem": [_P, _I, _P, _P] + [_I] * 6 + [_P],
         # xp_bf16, smem
         "nsp_lstm_infer_smem_occupancy": [_I] * 2,
+        # the f32 recurrence: xp, w_hh, hs, n, seq_len, hidden, bn, smem,
+        # grid_x, stream
+        "nsp_lstm_infer_f32": [_P] * 3 + [_I] * 6 + [_P],
+        # hidden, smem
+        "nsp_lstm_infer_f32_occupancy": [_I] * 2,
         # sweep, smem
         "nsp_lstm_cluster_occupancy": [_I] * 2,
     },

@@ -8,6 +8,9 @@
 //   nsp_lstm_infer_smem, nsp_lstm_infer_cluster, nsp_lstm_infer
 //                 <- _kernel       (no gradient wanted: streams h_t only,
 //                                    xp f32 or bf16)
+//   nsp_lstm_infer_f32
+//                 <- no Pallas kernel: the lax.scan route in f32 (f32 w_hh,
+//                    nothing rounded; its design is at its kernel, below)
 //   nsp_lstm_fwd_smem, nsp_lstm_fwd_cluster, nsp_lstm_fwd
 //                 <- _train_kernel  (forward; streams h_t and c_t)
 //   nsp_lstm_bwd_smem, nsp_lstm_bwd_cluster, nsp_lstm_bwd
@@ -1960,6 +1963,238 @@ int g_fwd_resident = 0;
 int g_bwd_resident = 0;
 int g_infer_resident[2] = {0, 0};  // f32 xp, bf16 xp
 
+// ---------------------------------------------------------------------------
+// The f32 inference recurrence (nsp_lstm_infer_f32), the counterpart of the
+// JAX package's lax.scan route in f32 (nanosnp_tpu/models/bilstm.py
+// _bilstm_layer with use_pallas False), which no Pallas kernel computes:
+// gates = xp_t + h_{t-1} . W_hh with f32 h and W, nothing rounded, f32
+// gate and cell math with accurate expf / tanhf, both directions.
+//
+// The products run as FFMA on the CUDA cores: TF32 keeps 10 bits of
+// mantissa and would break the parity the route exists for. One CTA per
+// (direction, kF32BN = 64 batch rows), 256 threads:
+// - h_{t-1} sits in shared memory transposed, [H][64] f32, two buffers by
+//   step parity (one barrier a step where W is resident, else the ring's);
+// - the 4H gate columns are taken in chunks of kF32Units = 64 units, all
+//   four gates of each (256 columns); thread (rg, ug) owns batch rows
+//   4 rg..4 rg+3 and units 4 ug..4 ug+3 of the chunk: 64 accumulators, a
+//   float4 of h (four rows of one k) and four of W (four units of each
+//   gate) from shared memory for 64 FFMA. The chunk loop is not unrolled,
+//   so that its code (the product, and the accurate gate math of 16
+//   values, some 2,400 instructions) exists once and stays in the
+//   instruction cache (unrolled over H=256's four chunks it ran markedly
+//   slower on an H100: PERF.md section 6). The thread's cell states,
+//   c_state[kChunks][4][4] (kChunks = ceil(H / 64), the template
+//   parameter), are then indexed by the chunk at run time and live in its
+//   local memory, cached in L1;
+// - W_hh streams from L2 in tiles of kF32KT = 16 k rows x 256 columns
+//   (16 KiB) through a ring of kF32Stages by cp.async: the same cyclic
+//   sequence of tiles every step, so the ring runs ahead across chunk and
+//   step boundaries. Where a step's tiles fit the ring (H <= 64, W 64 KiB
+//   a direction) they are loaded once and stay;
+// - after a chunk's last tile each thread adds its xp (prefetched into L2
+//   as the chunk starts), forms the gates, writes h_t to hs and to the
+//   other h buffer.
+// Units past H (H not a multiple of 64) read zeros of W and are not stored.
+// Bound: FFMA, H^2 16 N L (two directions, 4H x H each), against the
+// card's 67 TFLOP/s outside the tensor cores; xp in and hs out are under
+// that at H >= 64.
+constexpr int kF32BN = 64;
+constexpr int kF32Threads = 256;
+constexpr int kF32Units = 64;
+constexpr int kF32KT = 16;
+constexpr int kF32Stages = 4;
+constexpr int kF32Tile = kF32KT * 4 * kF32Units;  // floats a W tile
+
+int f32_smem_bytes(int hidden) {
+  return (2 * hidden * kF32BN + kF32Stages * kF32Tile) * 4;
+}
+
+bool f32_plan_ok(int n, int seq_len, int hidden, int bn, int grid_x) {
+  return n > 0 && seq_len > 0 && hidden >= 16 && hidden % 16 == 0 &&
+         hidden <= 256 && bn == kF32BN &&
+         grid_x == (n + kF32BN - 1) / kF32BN;
+}
+
+// W tile (chunk c, k tile kt) of w [H, 4H] f32 into dst [kF32KT][4][64]:
+// row kk, gate g, unit u of the chunk is w[kt 16 + kk, g H + 64 c + u];
+// units past H are zeros
+__device__ __forceinline__ void f32_load_tile(float* dst,
+                                              const float* __restrict__ w,
+                                              int hidden, int c, int kt,
+                                              int tid) {
+#pragma unroll
+  for (int p = 0; p < kF32Tile / 4 / kF32Threads; ++p) {
+    const int i = tid + p * kF32Threads;  // 16-byte piece
+    const int q = i & 15, g = (i >> 4) & 3, kk = i >> 6;
+    const int u = c * kF32Units + 4 * q;
+    const bool ok = u < hidden;
+    cp_async16(dst + 4 * i,
+               w + (size_t)(kt * kF32KT + kk) * 4 * hidden + g * hidden +
+                   (ok ? u : 0),
+               ok);
+  }
+}
+
+template <int kChunks>
+__global__ void __launch_bounds__(kF32Threads, kChunks == 1 ? 2 : 1)
+    lstm_infer_f32_kernel(const float* __restrict__ xp,
+                          const float* __restrict__ w_hh,
+                          float* __restrict__ hs, int n, int seq_len,
+                          int hidden) {
+  extern __shared__ uint4 smem_u4[];
+  float* s_h = reinterpret_cast<float*>(smem_u4);  // [2][H][kF32BN]
+  float* s_w = s_h + 2 * hidden * kF32BN;          // [kF32Stages][tile]
+  const int tid = threadIdx.x;
+  const int ug = tid & 15, rg = tid >> 4;
+  const int dir = blockIdx.y;
+  const int n0 = blockIdx.x * kF32BN;
+  const float* w = w_hh + (size_t)dir * hidden * 4 * hidden;
+  const int k_tiles = hidden / kF32KT;
+  const int tiles = kChunks * k_tiles;  // a step's
+  const bool resident = tiles <= kF32Stages;
+
+  for (int i = tid; i < hidden * kF32BN; i += kF32Threads) s_h[i] = 0.0f;
+  if (resident) {
+    for (int s = 0; s < tiles; ++s)
+      f32_load_tile(s_w + s * kF32Tile, w, hidden, s / k_tiles,
+                    s % k_tiles, tid);
+    cp_async_commit();
+    cp_async_wait_all();
+  } else {
+    for (int s = 0; s < kF32Stages - 1; ++s) {
+      f32_load_tile(s_w + s * kF32Tile, w, hidden, s / k_tiles, s % k_tiles,
+                    tid);
+      cp_async_commit();
+    }
+  }
+
+  float c_state[kChunks][4][4];
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) c_state[c][r][j] = 0.0f;
+
+  int gidx = 0;  // tile of the stream being consumed
+  for (int step = 0; step < seq_len; ++step) {
+    const int t = dir == 0 ? step : seq_len - 1 - step;
+    const float* h_prev = s_h + (step & 1) * hidden * kF32BN;
+    float* h_next = s_h + ((step + 1) & 1) * hidden * kF32BN;
+    if (resident) __syncthreads();
+#pragma unroll 1
+    for (int c = 0; c < kChunks; ++c) {
+      const int u0 = c * kF32Units + 4 * ug;
+      const bool unit_ok = u0 < hidden;
+      const float* xp_row[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = n0 + 4 * rg + r;
+        xp_row[r] = xp + (((size_t)(row < n ? row : 0) * seq_len + t) * 2 +
+                          dir) * 4 * hidden + u0;
+        if (unit_ok && row < n)
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            asm volatile("prefetch.global.L2 [%0];" ::"l"(xp_row[r] +
+                                                          g * hidden));
+      }
+      float acc[4][4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[r][g][j] = 0.0f;
+
+      for (int kt = 0; kt < k_tiles; ++kt, ++gidx) {
+        int slot;
+        if (resident) {
+          slot = c * k_tiles + kt;
+        } else {
+          slot = gidx % kF32Stages;
+          cp_async_wait<kF32Stages - 2>();
+          __syncthreads();
+          const int next = (gidx + kF32Stages - 1) % tiles;
+          f32_load_tile(s_w + ((gidx + kF32Stages - 1) % kF32Stages) *
+                                  kF32Tile,
+                        w, hidden, next / k_tiles, next % k_tiles, tid);
+          cp_async_commit();
+        }
+        const float* wt = s_w + slot * kF32Tile + 4 * ug;
+        const float* ht = h_prev + kt * kF32KT * kF32BN + 4 * rg;
+#pragma unroll
+        for (int kk = 0; kk < kF32KT; ++kk) {
+          const float4 hv =
+              *reinterpret_cast<const float4*>(ht + kk * kF32BN);
+          const float hr[4] = {hv.x, hv.y, hv.z, hv.w};
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            const float4 wv = *reinterpret_cast<const float4*>(
+                wt + (kk * 4 + g) * kF32Units);
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              acc[r][g][0] = fmaf(hr[r], wv.x, acc[r][g][0]);
+              acc[r][g][1] = fmaf(hr[r], wv.y, acc[r][g][1]);
+              acc[r][g][2] = fmaf(hr[r], wv.z, acc[r][g][2]);
+              acc[r][g][3] = fmaf(hr[r], wv.w, acc[r][g][3]);
+            }
+          }
+        }
+      }
+
+      if (unit_ok) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int row = n0 + 4 * rg + r;
+          float x[4][4];
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            const float4 v = row < n ? __ldg(reinterpret_cast<const float4*>(
+                                           xp_row[r] + g * hidden))
+                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+            x[g][0] = v.x;
+            x[g][1] = v.y;
+            x[g][2] = v.z;
+            x[g][3] = v.w;
+          }
+          float h[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float gi = x[0][j] + acc[r][0][j];
+            const float gf = x[1][j] + acc[r][1][j];
+            const float gg = x[2][j] + acc[r][2][j];
+            const float go = x[3][j] + acc[r][3][j];
+            const float cn = sigmoid_f32(gf) * c_state[c][r][j] +
+                             sigmoid_f32(gi) * tanhf(gg);
+            c_state[c][r][j] = cn;
+            h[j] = sigmoid_f32(go) * tanhf(cn);
+            h_next[(u0 + j) * kF32BN + 4 * rg + r] = h[j];
+          }
+          if (row < n)
+            *reinterpret_cast<float4*>(
+                hs + (((size_t)row * seq_len + t) * 2 + dir) * hidden + u0) =
+                make_float4(h[0], h[1], h[2], h[3]);
+        }
+      }
+    }
+  }
+  if (!resident) cp_async_wait_all();
+}
+
+// the f32 kernel instance for H, or nullptr where no chunk count fits
+using F32Kernel = void (*)(const float*, const float*, float*, int, int,
+                           int);
+F32Kernel f32_kernel(int hidden) {
+  switch ((hidden + kF32Units - 1) / kF32Units) {
+    case 1: return lstm_infer_f32_kernel<1>;
+    case 2: return lstm_infer_f32_kernel<2>;
+    case 3: return lstm_infer_f32_kernel<3>;
+    case 4: return lstm_infer_f32_kernel<4>;
+    default: return nullptr;
+  }
+}
+
 }  // namespace
 
 extern "C" int nsp_lstm_fwd(const void* xp, const void* wpk, void* hs,
@@ -2157,4 +2392,42 @@ extern "C" int nsp_lstm_cluster_occupancy(int sweep, int smem) {
   return sweep ? cluster_occupancy(lstm_bwd_cluster_kernel, smem)
                : cluster_occupancy(lstm_fwd_cluster_kernel<true, float>,
                                    smem);
+}
+
+// The f32 inference recurrence: xp [n, L, 2, 4H] f32 and w_hh [2, H, 4H]
+// f32 as the model holds it, hs [n, L, 2, H] f32; bn, smem and grid_x are
+// the wrapper's plan (ops/lstm_train.plan_infer_f32), checked here:
+// kPlanError where it does not match the shape.
+extern "C" int nsp_lstm_infer_f32(const void* xp, const void* w_hh, void* hs,
+                                  int n, int seq_len, int hidden, int bn,
+                                  int smem, int grid_x, void* stream) {
+  if (!f32_plan_ok(n, seq_len, hidden, bn, grid_x) ||
+      smem != f32_smem_bytes(hidden) || smem > kSmemMax)
+    return kPlanError;
+  const F32Kernel kernel = f32_kernel(hidden);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(grid_x, 2), kF32Threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xp), static_cast<const float*>(w_hh),
+      static_cast<float*>(hs), n, seq_len, hidden);
+  return (int)cudaGetLastError();
+}
+
+// CTAs of the f32 inference recurrence at width `hidden` an SM holds at
+// once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or < 0 (a negated
+// cudaError, or kPlanError for bytes that are not the kernel's)
+extern "C" int nsp_lstm_infer_f32_occupancy(int hidden, int smem) {
+  if (!f32_plan_ok(1, 1, hidden, kF32BN, 1) || smem != f32_smem_bytes(hidden))
+    return kPlanError;
+  const F32Kernel kernel = f32_kernel(hidden);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return -(int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      kF32Threads, smem);
+  if (err != cudaSuccess) return -(int)err;
+  return blocks;
 }

@@ -47,6 +47,14 @@ xp staged in its own dtype, nothing packed), `cluster` at H=256 (the
 cluster training forward's kernel without the cell-state stream, nothing
 packed), `packed` at every other H.
 
+`lstm_recurrence_infer` with an f32 w_hh (the scan route in f32, which no
+Pallas kernel computes: the counterpart of the JAX package's lax.scan in
+`_bilstm_layer` with use_pallas False) launches the f32 kernel of
+`plan_infer_f32(n, L, H)`: FFMA products of f32 h and W, nothing rounded,
+one CTA per (direction, 64 batch rows), W_hh streamed from L2 through a
+ring of shared-memory tiles (held once where a step's tiles fit it,
+H <= 64). Its launches count under `lstm_recurrence_infer_f32`.
+
 `lstm_recurrence(xp, w_hh)` takes the inference kernel when no gradient is
 wanted and the autograd op over the training kernels otherwise.
 
@@ -60,7 +68,8 @@ The dtype of w_hh is the compute dtype, as the Pallas path's
 `compute_dtype`: bf16 (the kernels; training casts w_hh to bf16) rounds
 h_{t-1} and, in the backward, dgates to bf16 before the products, with f32
 accumulation, and returns dW_hh as its f32 sum rounded to bf16. A wider
-w_hh (f32, or f64 for gradcheck) runs the plain versions without rounding.
+w_hh (f32, or f64 for gradcheck) runs the plain versions without rounding,
+except that `lstm_recurrence_infer` has its f32 kernel on the card.
 
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel of its plan or raises. `LAUNCHES` (shared
@@ -217,6 +226,34 @@ def plan_infer(n: int, seq_len: int, hidden: int,
                          cluster_smem_bytes(hidden, csize, bn)[0], csize)
     # csrc/lstm_train.cu launch_fwd: kFwdNT n-tiles of 8 rows a block
     return InferPlan("packed", 32, (-(-n // 32), 2), 32 * (hidden + 8) * 2)
+
+
+# csrc/lstm_train.cu kF32BN, kF32KT, kF32Units, kF32Stages: the f32
+# kernel's batch rows a CTA, and its W tiles (k rows x the four gates of 64
+# units, f32) and their ring
+F32_BN = 64
+F32_TILE = (16, 4 * 64)
+F32_STAGES = 4
+
+
+def f32_smem_bytes(hidden: int) -> int:
+    """Shared memory of the f32 kernel's CTA: h_{t-1} [2][H][64] f32 by step
+    parity and the ring of F32_STAGES W tiles of 16 x 256 f32
+    (csrc/lstm_train.cu f32_smem_bytes)."""
+    return (2 * hidden * F32_BN + F32_STAGES * F32_TILE[0] * F32_TILE[1]) * 4
+
+
+def plan_infer_f32(n: int, seq_len: int, hidden: int) -> InferPlan:
+    """The f32 inference kernel's plan, path "f32": one CTA per (direction,
+    64 batch rows) at every H that the bf16 kernels take (a multiple of 16
+    up to 256; N = 8192 is 256 CTAs). Raises ValueError for a shape no
+    kernel takes."""
+    if n < 1 or seq_len < 1 or hidden < 16 or hidden % 16 or hidden > 256:
+        raise ValueError(f"no f32 inference kernel plan for N={n}, "
+                         f"L={seq_len}, H={hidden}: H must be a multiple "
+                         "of 16 up to 256")
+    return InferPlan("f32", F32_BN, (-(-n // F32_BN), 2),
+                     f32_smem_bytes(hidden))
 
 
 class DwPlan(NamedTuple):
@@ -438,11 +475,14 @@ def _raise_on(err, name, n, seq_len, hidden):
 
 def lstm_recurrence_infer(xp, w_hh):
     """xp [N, L, 2, 4H] f32 or bf16, w_hh [2, H, 4H] -> hs [N, L, 2, H]
-    f32. No gradient flows through it. The kernel of `plan_infer`."""
+    f32. No gradient flows through it. bf16 w_hh: the kernel of
+    `plan_infer`; f32 w_hh (xp f32): the f32 kernel."""
     _check(xp, w_hh)
     if xp.device.type == "cpu":
         with torch.no_grad():
             return lstm_recurrence_infer_plain(xp, w_hh)
+    if w_hh.dtype == torch.float32:
+        return _infer_f32(xp, w_hh)
     from .build import library
 
     n, seq_len, _, four_h = xp.shape
@@ -473,6 +513,32 @@ def lstm_recurrence_infer(xp, w_hh):
                     hs.data_ptr(), n, seq_len, hidden, _stream(xp))
         _raise_on(err, "lstm_recurrence_infer", n, seq_len, hidden)
         LAUNCHES["lstm_recurrence_infer"] += 1
+    return hs
+
+
+def _infer_f32(xp, w_hh):
+    """The f32 kernel of `plan_infer_f32` on CUDA tensors: xp and w_hh f32,
+    nothing rounded."""
+    from .build import library
+
+    n, seq_len, _, four_h = xp.shape
+    hidden = four_h // 4
+    _check_kernel_inputs(hidden, ())
+    if xp.dtype != torch.float32 or not all(
+            t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (xp, w_hh)):
+        raise TypeError("the f32 inference kernel takes f32 xp and w_hh, "
+                        "contiguous and 16-byte aligned; got "
+                        f"{xp.dtype} and {w_hh.dtype}")
+    hs = torch.empty(n, seq_len, 2, hidden, dtype=torch.float32,
+                     device=xp.device)
+    if n and seq_len:
+        plan = plan_infer_f32(n, seq_len, hidden)
+        with torch.cuda.device(xp.device):
+            err = library("lstm_train").nsp_lstm_infer_f32(
+                xp.data_ptr(), w_hh.data_ptr(), hs.data_ptr(), n, seq_len,
+                hidden, plan.bn, plan.smem, plan.grid[0], _stream(xp))
+        _raise_on(err, "lstm_recurrence_infer (f32)", n, seq_len, hidden)
+        LAUNCHES["lstm_recurrence_infer_f32"] += 1
     return hs
 
 
@@ -575,6 +641,19 @@ def infer_smem_occupancy(xp_bytes: int) -> int:
     return got
 
 
+def infer_f32_occupancy(hidden: int) -> int:
+    """CTAs of the f32 inference kernel at width `hidden` an SM holds at
+    once (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current
+    device)."""
+    from .build import library
+
+    got = library("lstm_train").nsp_lstm_infer_f32_occupancy(
+        hidden, f32_smem_bytes(hidden))
+    if got < 0:
+        raise RuntimeError(f"occupancy query failed: {got}")
+    return got
+
+
 def cluster_occupancy(sweep: bool) -> int:
     """Clusters of the cluster path's forward (or sweep) the card holds at
     once (cudaOccupancyMaxActiveClusters on the current device)."""
@@ -661,6 +740,14 @@ def infer_cost(n: int, seq_len: int, hidden: int, xp_bytes: int = 4):
     return flop, (n * seq_len * 2 * 4 * hidden * xp_bytes
                   + 2 * hidden * 4 * hidden * 2
                   + n * seq_len * 2 * hidden * 4)
+
+
+def infer_f32_cost(n: int, seq_len: int, hidden: int):
+    """The f32 kernel's FMA products (counted as 2 FLOP each, on the CUDA
+    cores) and its f32 xp in, w_hh in, hs out."""
+    flop = 2 * (2 * n * seq_len) * 4 * hidden * hidden
+    return flop, (n * seq_len * 2 * 4 * hidden * 4 + 2 * hidden * 4 * hidden
+                  * 4 + n * seq_len * 2 * hidden * 4)
 
 
 def train_cost(n: int, seq_len: int, hidden: int):

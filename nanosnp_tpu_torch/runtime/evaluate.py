@@ -4,8 +4,10 @@
 Each yields the model's probabilities beside the labels, batch by batch,
 so that the CLI accumulates its confusion matrices from them and a caller
 can hold two devices' decisions against each other on the same inputs.
-On the card the encoders run the bf16 kernels, as s2 and s5 do; on the
-CPU, with `inference.use_bf16: false`, the f32 path the JAX CLI runs.
+As the JAX CLI's `_run_evaluate_*`, which call its predict functions with
+their defaults, they compute in f32 on the scan route (f32 features, f32
+encoders and heads) whatever `inference` says: on the card the encoders
+run the f32 inference recurrence kernel, on the CPU its plain version.
 """
 from __future__ import annotations
 
@@ -18,7 +20,6 @@ from ..config import PipelineConfig
 from ..device import resolve_device
 from ..io.fasta import FastaReference
 from ..train.metrics import ConfusionAccumulator
-from .stages import compute_dtype
 
 # (gt probabilities, zy probabilities, gt labels, zy labels), numpy
 Scored = Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]
@@ -55,9 +56,8 @@ def pileup_scores(cfg: PipelineConfig, model_path: str, data_dir: str,
     dev = resolve_device(device)
     params, _ = load_checkpoint(model_path)
     model = PileupModel(cfg.pileup_model, params).to(dev)
-    dtype = compute_dtype(cfg)
     predictor = BatchedPredictor(
-        lambda x: pileup_predict(model, x, compute_dtype=dtype),
+        lambda x: pileup_predict(model, x, route="scan"),
         batch_size=batch_size, device=dev)
     for path in list_shards(data_dir):
         arrays = D.load_train_arrays(path)
@@ -88,12 +88,11 @@ def haplotype_scores(cfg: PipelineConfig, model_path: str,
     D.set_reference_for_training({n: ref.contig(n) for n in ref.names})
     params, _ = load_checkpoint(model_path)
     model = HaplotypeModel(cfg.haplotype_model, params).to(dev)
-    dtype = compute_dtype(cfg)
 
     def fn(sp, bp, mp_, hp, rp, sh, bh, mh, hh, rh):
-        xp = haplotype_features(sp, bp, mp_, hp, rp).to(dtype)
-        xh = haplotype_features(sh, bh, mh, hh, rh).to(dtype)
-        return haplotype_predict(model, xp, xh, compute_dtype=dtype)
+        xp = haplotype_features(sp, bp, mp_, hp, rp)
+        xh = haplotype_features(sh, bh, mh, hh, rh)
+        return haplotype_predict(model, xp, xh, route="scan")
 
     predictor = BatchedPredictor(fn, batch_size=batch_size, device=dev)
     for batch in D.haplotype_train_iterator(

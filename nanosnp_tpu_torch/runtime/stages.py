@@ -522,29 +522,49 @@ def compute_dtype(cfg: PipelineConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.inference.use_bf16 else torch.float32
 
 
+def resolve_use_pallas(cfg: PipelineConfig, device) -> bool:
+    """Whether the encoders take the kernel route (the counterpart of the
+    JAX package's _resolve_use_pallas): `auto` exactly on a CUDA device,
+    where the JAX package resolves it to its Pallas kernels on the TPU and
+    to its lax.scan on the CPU; `true` and `false` stand as given."""
+    v = cfg.inference.use_pallas
+    if v == "auto":
+        return torch.device(device).type == "cuda"
+    return bool(v)
+
+
+def encoder_route(cfg: PipelineConfig, device) -> str:
+    """The models' `route` for the serving stages: "kernels" or "scan"."""
+    return "kernels" if resolve_use_pallas(cfg, device) else "scan"
+
+
 def pileup_model_predictor(cfg: PipelineConfig, model: PileupModel,
                            device) -> BatchedPredictor:
     """Dense-window s2 predictor: [B, 33, 18] int16 counts -> (gt, zy)."""
     dtype = compute_dtype(cfg)
+    route = encoder_route(cfg, device)
 
     def fn(x):
-        return pileup_predict(model, x.float(), compute_dtype=dtype)
+        return pileup_predict(model, x.float(), compute_dtype=dtype,
+                              route=route)
 
     return BatchedPredictor(fn, batch_size=cfg.inference.batch_size,
                             device=device)
 
 
-def pileup_columnar_fn(cfg: PipelineConfig, model: PileupModel):
+def pileup_columnar_fn(cfg: PipelineConfig, model: PileupModel, device):
     """(columns [U, 18] int16, idx [B] int64) on the device -> (gt, zy):
     gathers each candidate's 33-wide window from the resident column union
     on the device, then runs the pileup model."""
     dtype = compute_dtype(cfg)
+    route = encoder_route(cfg, device)
     flank = (cfg.pileup_model.seq_len - 1) // 2
 
     def fn(cols, idx):
         offs = torch.arange(-flank, flank + 1, device=cols.device)
         w = cols[idx[:, None] + offs[None, :]]               # [B, 33, 18]
-        return pileup_predict(model, w.float(), compute_dtype=dtype)
+        return pileup_predict(model, w.float(), compute_dtype=dtype,
+                              route=route)
 
     return fn
 
@@ -557,7 +577,7 @@ def run_pileup_columnar(cfg: PipelineConfig, model: PileupModel,
     device once per unit, each batch's windows are gathered there, and a
     unit's results are fetched once, one unit behind the launches."""
     device = resolve_device(device)
-    fn = pileup_columnar_fn(cfg, model)
+    fn = pileup_columnar_fn(cfg, model, device)
     bs = cfg.inference.batch_size
     flank = shard.flank
     cand_off = shard.cand_off
@@ -886,9 +906,11 @@ def haplotype_model_predictor(cfg: PipelineConfig, model: HaplotypeModel,
     """Haplotype model on [B, 33, 105] / [B, 11, 105] features (already on
     the device) -> (gt, zy) probabilities."""
     dtype = compute_dtype(cfg)
+    route = encoder_route(cfg, device)
 
     def fn(xp, xh):
-        return haplotype_predict(model, xp, xh, compute_dtype=dtype)
+        return haplotype_predict(model, xp, xh, compute_dtype=dtype,
+                                 route=route)
 
     return BatchedPredictor(fn, batch_size=cfg.inference.batch_size,
                             device=device)

@@ -9,7 +9,13 @@ shard and train bins written by one package and read by the other.
 The reports must be equal (floats to 1e-9) and the printed confusion
 matrices identical: the two packages' f32 probabilities differ only in
 summation order, far below the gap between the top two classes of these
-inputs."""
+inputs.
+
+At the default config (no `inference` section: bf16, `use_pallas: auto`)
+the JAX CLI's evaluate commands still compute in f32 on its scan route;
+the port's `runtime/evaluate` probabilities are held to the JAX
+`pileup_predict` / `haplotype_predict` f32 ones within EVAL_PROB_TOL, and
+the CLI reports to the JAX CLI's."""
 import json
 import pickle
 import sys
@@ -55,6 +61,10 @@ haplotype_model:
 inference:
   use_bf16: false
 """
+# the same models at the default inference settings
+DEFAULT_CONFIG = CONFIG[:CONFIG.index("inference:")]
+# f32 on both sides: summation order only
+EVAL_PROB_TOL = 1e-5
 
 
 def _row(ctg, pos, ref, alt, qual=30.0, filt="PASS", gt="0/1"):
@@ -172,6 +182,7 @@ def eval_world(tmp_path_factory):
                             _pileup_arrays(rng, n))
     _haplotype_world(tmp, rng)
     (tmp / "cfg.yaml").write_text(CONFIG)
+    (tmp / "default.yaml").write_text(DEFAULT_CONFIG)
     gen = torch.Generator().manual_seed(5)
     for name, params in (
             ("pileup.ckpt", init_pileup_params(gen, PileupModelConfig(**PILE))),
@@ -226,6 +237,96 @@ def test_evaluate_haplotype_reports_what_the_jax_cli_reports(
                          "evaluate_haplotype.json")
     # the sites in batches of 64 end in a tiled tail, scored once
     assert got[0]["n"] > 64 and got[0]["n"] % 64
+
+
+def _jax_probabilities(w, cmd):
+    """The JAX package's f32 predict functions (their defaults, as its
+    CLI calls them) on the batches the port's evaluate generator scores,
+    in its order."""
+    import jax.numpy as jnp
+
+    from nanosnp_tpu import config as jconfig
+    from nanosnp_tpu.features.haplotype import haplotype_features
+    from nanosnp_tpu.models.haplotype_model import haplotype_predict
+    from nanosnp_tpu.models.pileup_model import pileup_predict
+    from nanosnp_tpu.train.train_pileup import load_checkpoint
+
+    cfg = jconfig.load_config(str(w / "default.yaml"))
+    if cmd == "evaluate-pileup":
+        params, _ = load_checkpoint(str(w / "pileup.ckpt"))
+        for path in bins.list_shards(str(w / "data")):
+            x = JD.load_train_arrays(path).matrix.astype(np.float32)
+            yield [np.asarray(p) for p in pileup_predict(
+                params, jnp.asarray(x), cfg.pileup_model)]
+        return
+    from nanosnp_tpu_torch.io.fasta import FastaReference
+    from nanosnp_tpu_torch.runtime import evaluate as E
+
+    params, _ = load_checkpoint(str(w / "hap.ckpt"))
+    ref = FastaReference(str(w / "ref.fa"))
+    truth = E.truth_arrays(ref, str(w / "truth.vcf"), str(w / "conf.bed"))
+    D.set_reference_for_training({n: ref.contig(n) for n in ref.names})
+    for batch in D.haplotype_train_iterator(
+            bins.list_shards(str(w / "shards")), truth, 64,
+            np.random.default_rng(0), epochs=1, pn_value=1.0):
+        n = batch.pop("_n", None)
+        feats = [haplotype_features(*[
+            jnp.asarray(batch[v + k], jnp.float32)
+            for k in ("seq", "baseq", "mapq", "hap", "ref")])
+            for v in ("p_", "h_")]
+        yield [np.asarray(p)[:n] for p in haplotype_predict(
+            params, *feats, cfg.haplotype_model)]
+
+
+@pytest.mark.parametrize("cmd", ["evaluate-pileup", "evaluate-haplotype"])
+def test_evaluate_at_the_default_config_computes_as_the_jax_cli(
+        eval_world, capsys, tmp_path, cmd):
+    """The default config asks for bf16; the JAX CLI's evaluate commands
+    compute in f32 regardless, and so must the port's."""
+    from nanosnp_tpu_torch.config import load_config
+    from nanosnp_tpu_torch.io.fasta import FastaReference
+    from nanosnp_tpu_torch.runtime import evaluate as E
+
+    w = eval_world
+    cfg = load_config(str(w / "default.yaml"))
+    assert cfg.inference.use_bf16 and cfg.inference.use_pallas == "auto"
+    if cmd == "evaluate-pileup":
+        got = E.pileup_scores(cfg, str(w / "pileup.ckpt"), str(w / "data"),
+                              False, 256, "cpu")
+    else:
+        ref = FastaReference(str(w / "ref.fa"))
+        got = E.haplotype_scores(
+            cfg, str(w / "hap.ckpt"), bins.list_shards(str(w / "shards")),
+            ref, E.truth_arrays(ref, str(w / "truth.vcf"),
+                                str(w / "conf.bed")), 64, "cpu")
+    got, want = list(got), list(_jax_probabilities(w, cmd))
+    assert len(got) == len(want) > 0
+    worst = 0.0
+    for (gt_p, zy_p, _, _), (gt_w, zy_w) in zip(got, want):
+        for g, v in ((gt_p, gt_w), (zy_p, zy_w)):
+            assert g.shape == v.shape
+            worst = max(worst, float(np.abs(g - v).max()))
+    assert worst <= EVAL_PROB_TOL, worst
+
+    if cmd == "evaluate-pileup":
+        args = ["--data", str(w / "data"), "--model", str(w / "pileup.ckpt"),
+                "--batch-size", "256"]
+    else:
+        args = ["--shards", str(w / "shards"), "--ref", str(w / "ref.fa"),
+                "--truth-vcf", str(w / "truth.vcf"), "--bed",
+                str(w / "conf.bed"), "--model", str(w / "hap.ckpt"),
+                "--batch-size", "64"]
+    args = [cmd, "--config", str(w / "default.yaml")] + args
+    capsys.readouterr()
+    assert jax_main(args + ["-o", str(tmp_path / "jax")]) == 0
+    want_report = _stdout_report(capsys)
+    assert torch_main(args + ["-o", str(tmp_path / "port"), "--device",
+                              "cpu"]) == 0
+    name = cmd.replace("-", "_") + ".json"
+    _assert_same_reports(_stdout_report(capsys), want_report,
+                         tmp_path / "port", tmp_path / "jax", name)
+    print(f"{cmd} at the default config: max |dp| {worst:.2e} against the "
+          "JAX f32 predict")
 
 
 @pytest.mark.parametrize("cmd", ["evaluate-pileup", "evaluate-haplotype"])
