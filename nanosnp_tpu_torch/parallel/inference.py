@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.profiling import count
 from .mesh import pad_to_multiple
 
 
@@ -31,13 +32,15 @@ class BatchedPredictor:
         self.device = resolve_device(device)
 
     def _stage(self, arrays: Sequence) -> List[torch.Tensor]:
-        """Host arrays -> device tensors (tensors are moved if needed)."""
+        """Host arrays -> device tensors (tensors are moved if needed);
+        counter `nsp.h2d_bytes` adds the host arrays' bytes."""
         out = []
         for a in arrays:
             if isinstance(a, torch.Tensor):
                 out.append(a.to(self.device))
                 continue
             t = torch.from_numpy(np.ascontiguousarray(a))
+            count("nsp.h2d_bytes", t.nbytes)
             if self.device.type == "cuda":
                 # page-locked staging from PyTorch's caching host allocator,
                 # which recycles a buffer only once its copy has finished

@@ -88,9 +88,10 @@ class PipelineRunner:
             invalidated = True
             self.log.info("stage %s: start (%s)", st.name, st.description)
             t0 = time.monotonic()
-            from ..utils.profiling import maybe_profile
+            from ..utils.profiling import maybe_profile, session
 
-            with maybe_profile(st.name):   # NSP_PROFILE_DIR gates the trace
+            # NSP_PROFILE_DIR gates the trace, and the trace the session
+            with maybe_profile(st.name), session(f"nsp.pipeline.{st.name}"):
                 metrics = st.fn(**ctx) or {}
             dt = time.monotonic() - t0
             with open(marker, "w") as f:

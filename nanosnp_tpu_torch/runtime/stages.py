@@ -44,6 +44,7 @@ from ..models.convert import load_pileup_checkpoint
 from ..models.haplotype_model import HaplotypeModel, haplotype_predict
 from ..models.pileup_model import PileupModel, pileup_predict
 from ..parallel.inference import BatchedPredictor
+from ..utils.profiling import count, session, span
 
 def split_mpileup_by_contig(mpileup_path: str, out_dir: str,
                             contigs: Optional[Sequence[str]] = None) -> List[str]:
@@ -601,9 +602,10 @@ def run_pileup_columnar(cfg: PipelineConfig, model: PileupModel,
         cols = torch.from_numpy(np.ascontiguousarray(shard.columns[lo:hi]))
         if device.type == "cuda":
             cols = cols.pin_memory()
+        idx = torch.from_numpy(cand_off[i:j] - lo)
+        count("nsp.h2d_bytes", cols.nbytes + idx.nbytes)
         cols_dev = cols.to(device, non_blocking=True)
-        idx_dev = torch.from_numpy(cand_off[i:j] - lo).to(
-            device, non_blocking=True)
+        idx_dev = idx.to(device, non_blocking=True)
         outs = [fn(cols_dev, idx_dev[s: s + bs]) for s in range(0, j - i, bs)]
         pending.append((torch.cat([o[0] for o in outs]),
                         torch.cat([o[1] for o in outs])))
@@ -618,6 +620,7 @@ def run_pileup_columnar(cfg: PipelineConfig, model: PileupModel,
     return np.concatenate(gts), np.concatenate(zys)
 
 
+@session("nsp.s2")
 def stage_pileup_predict(
     cfg: PipelineConfig,
     ref: FastaReference,
@@ -629,7 +632,12 @@ def stage_pileup_predict(
 ) -> Dict:
     """s2: pileup shards -> VCF. `params` is the port's parameter tree;
     without it the reference-layout checkpoint at `model_path` is loaded
-    (once a process, see `load_pileup_model`)."""
+    (once a process, see `load_pileup_model`).
+
+    A tracing session (utils/profiling.py), `nsp.s2`: the device worker's
+    `nsp.s2.load` and `nsp.s2.infer` a shard, the decode pool's
+    `nsp.s2.decode` a task, the main thread's `nsp.s2.write_wait` (for
+    a shard's results or a decoded task) and `nsp.s2.write`."""
     device = resolve_device(device)
     if params is None:
         model = load_pileup_model(cfg, model_path, device)
@@ -645,14 +653,17 @@ def stage_pileup_predict(
     # a thread pool into per-shard buffers (numpy string kernels release
     # the GIL); the main thread writes the buffers in shard order
     def infer(path):
-        shard = bins.load_pileup_shard(path)
+        with span("nsp.s2.load"):
+            shard = bins.load_pileup_shard(path)
         if len(shard) == 0:
             return None
-        if shard.columns is not None:
-            gt, zy = run_pileup_columnar(cfg, model, shard, device)
-        else:
-            # compact int16 counts go to the device, cast to f32 there
-            gt, zy = predictor.run(shard.matrix.astype(np.int16, copy=False))
+        with span("nsp.s2.infer"):
+            if shard.columns is not None:
+                gt, zy = run_pileup_columnar(cfg, model, shard, device)
+            else:
+                # compact int16 counts go to the device, cast to f32 there
+                gt, zy = predictor.run(shard.matrix.astype(np.int16,
+                                                           copy=False))
         return shard, gt, zy
 
     decode_split = 100_000   # rows per decode task
@@ -660,11 +671,12 @@ def stage_pileup_predict(
     def decode(res, lo, hi):
         shard, gt, zy = res
         buf = io.StringIO()
-        ref_bases = [r.decode()[16] for r in shard.ref_seqs[lo:hi]]
-        decode_pileup_calls_fast(
-            shard.contig, shard.positions[lo:hi], ref_bases,
-            gt[lo:hi], zy[lo:hi], shard.center_counts[lo:hi], buf,
-            batch_size=1000, bug_compat=cfg.inference.bug_compat)
+        with span("nsp.s2.decode"):
+            ref_bases = [r.decode()[16] for r in shard.ref_seqs[lo:hi]]
+            decode_pileup_calls_fast(
+                shard.contig, shard.positions[lo:hi], ref_bases,
+                gt[lo:hi], zy[lo:hi], shard.center_counts[lo:hi], buf,
+                batch_size=1000, bug_compat=cfg.inference.bug_compat)
         return hi - lo, buf.getvalue()
 
     n_dec = max(min((cfg.threads or (os.cpu_count() or 4)) - 1, 4), 1)
@@ -681,7 +693,8 @@ def stage_pileup_predict(
                 idx += 1
             while infer_q and (infer_q[0].done() or len(decode_q) == 0) \
                     and len(decode_q) < 2 * n_dec + 2:
-                res = infer_q.pop(0).result()
+                with span("nsp.s2.write_wait"):
+                    res = infer_q.pop(0).result()
                 if res is None:
                     continue
                 n_rows = len(res[0])
@@ -690,8 +703,10 @@ def stage_pileup_predict(
                         decode, res, lo, min(lo + decode_split, n_rows)))
             if not decode_q:
                 continue
-            n, text = decode_q.pop(0).result()
-            out.write(text)
+            with span("nsp.s2.write_wait"):
+                n, text = decode_q.pop(0).result()
+            with span("nsp.s2.write"):
+                out.write(text)
             n_sites += n
     dt = time.monotonic() - t0
     return {"sites": n_sites, "sites_per_s": round(n_sites / dt, 1) if dt else 0}
@@ -959,6 +974,7 @@ def _defer_unphased(shard: bins.HaplotypeShard, frac: float):
     return shard, n_drop
 
 
+@session("nsp.s5")
 def stage_haplotype_predict(
     cfg: PipelineConfig,
     ref: FastaReference,
@@ -976,7 +992,15 @@ def stage_haplotype_predict(
     model; only the (gt, zy) probabilities come back. Deep buckets
     featurize in sub-batches that are concatenated on the device up to the
     model batch. `params` is the port's parameter tree; without it the
-    checkpoint at `model_path` is loaded (once a process)."""
+    checkpoint at `model_path` is loaded (once a process).
+
+    A tracing session (utils/profiling.py), `nsp.s5`: `nsp.s5.list`
+    (each shard opened for its contig), the loader thread's `nsp.s5.load`
+    and the main thread's `nsp.s5.load_wait` a shard, `nsp.s5.pool`
+    (deferral, padding, casts, reference codes, pooling), `nsp.s5.launch`
+    (a pool's concatenation, featurizer and model dispatch),
+    `nsp.s5.drain` (a batch's fetch and CSV lines), `nsp.s5.write` (a
+    contig's rows sorted and written)."""
     device = resolve_device(device)
     if params is None:
         model = load_haplotype_model(cfg, model_path, device)
@@ -995,108 +1019,118 @@ def stage_haplotype_predict(
     defer_frac = cfg.merge.defer_unphased_frac
 
     def drain_one():
-        meta, res = pending.pop(0)
-        gt = res[0].float().cpu().numpy()
-        gt_arg = gt.argmax(axis=1)
-        gt_max = gt.max(axis=1)
-        for j, (ctg, pos) in enumerate(meta):
-            qual = calculate_score(float(gt_max[j]))
-            results.append(((C.contig_sort_key(ctg), pos),
-                            f"{ctg}\t{pos}\t{C.GT21_LABELS[gt_arg[j]]}\t"
-                            f"{qual}\n"))
+        with span("nsp.s5.drain"):
+            meta, res = pending.pop(0)
+            gt = res[0].float().cpu().numpy()
+            gt_arg = gt.argmax(axis=1)
+            gt_max = gt.max(axis=1)
+            for j, (ctg, pos) in enumerate(meta):
+                qual = calculate_score(float(gt_max[j]))
+                results.append(((C.contig_sort_key(ctg), pos),
+                                f"{ctg}\t{pos}\t{C.GT21_LABELS[gt_arg[j]]}\t"
+                                f"{qual}\n"))
 
     def flush(key, final: bool) -> None:
-        pool = pools[key]
-        n = len(pool["meta"])
-        keep = 0 if final else n % model_bs
-        run_n = n - keep
-        if run_n == 0:
-            return
-        args = [np.concatenate([c[i] for c in pool["chunks"]])
-                for i in range(len(pool["chunks"][0]))]
-        fs = _featurize_sub_batch(cfg, key[0])
-        feat = featurizers.get(fs)
-        if feat is None:
-            feat = featurizers[fs] = haplotype_featurizer(cfg, fs, device)
-        for start in range(0, run_n, model_bs):
-            end = min(start + model_bs, run_n)
-            parts = [feat.apply(*[a[s: min(s + fs, end)] for a in args])
-                     for s in range(start, end, fs)]
-            xp = torch.cat([p[0] for p in parts])
-            xh = torch.cat([p[1] for p in parts])
-            pending.append((pool["meta"][start:end], model_pred.apply(xp, xh)))
-            while len(pending) > 2:
-                drain_one()
-        pool["meta"] = pool["meta"][run_n:]
-        pool["chunks"] = [[a[run_n:] for a in args]] if keep else []
+        with span("nsp.s5.launch"):
+            pool = pools[key]
+            n = len(pool["meta"])
+            keep = 0 if final else n % model_bs
+            run_n = n - keep
+            if run_n == 0:
+                return
+            args = [np.concatenate([c[i] for c in pool["chunks"]])
+                    for i in range(len(pool["chunks"][0]))]
+            fs = _featurize_sub_batch(cfg, key[0])
+            feat = featurizers.get(fs)
+            if feat is None:
+                feat = featurizers[fs] = haplotype_featurizer(cfg, fs, device)
+            for start in range(0, run_n, model_bs):
+                end = min(start + model_bs, run_n)
+                parts = [feat.apply(*[a[s: min(s + fs, end)] for a in args])
+                         for s in range(start, end, fs)]
+                xp = torch.cat([p[0] for p in parts])
+                xh = torch.cat([p[1] for p in parts])
+                pending.append((pool["meta"][start:end],
+                                model_pred.apply(xp, xh)))
+                while len(pending) > 2:
+                    drain_one()
+            pool["meta"] = pool["meta"][run_n:]
+            pool["chunks"] = [[a[run_n:] for a in args]] if keep else []
 
     # contig-grouped iteration: pools and result rows flush and are written
     # at every contig boundary, so host memory is O(contig)
-    paths = bins.list_shards(shard_dir)
-    contig_of = {p: str(bins.open_npz(p)["contig"]) for p in paths}
-    paths.sort(key=lambda p: (C.contig_sort_key(contig_of[p]), p))
+    with span("nsp.s5.list"):
+        paths = bins.list_shards(shard_dir)
+        contig_of = {p: str(bins.open_npz(p)["contig"]) for p in paths}
+        paths.sort(key=lambda p: (C.contig_sort_key(contig_of[p]), p))
+
+    def load(path):
+        with span("nsp.s5.load"):
+            return bins.load_haplotype_shard(path)
 
     def flush_contig(out_f):
         for key in list(pools):
             flush(key, final=True)
         while pending:
             drain_one()
-        results.sort(key=lambda kv: kv[0])
-        for _, line in results:
-            out_f.write(line)
-        results.clear()
-        pools.clear()
+        with span("nsp.s5.write"):
+            results.sort(key=lambda kv: kv[0])
+            for _, line in results:
+                out_f.write(line)
+            results.clear()
+            pools.clear()
 
     # the next shard loads (zstd/zlib inflate releases the GIL) while the
     # current one is pooled and featurized
     with open(output_csv, "w") as out_f, \
             ThreadPoolExecutor(max_workers=1) as loader:
-        fut = loader.submit(bins.load_haplotype_shard, paths[0]) \
-            if paths else None
+        fut = loader.submit(load, paths[0]) if paths else None
         cur_contig: Optional[str] = None
         for i in range(len(paths)):
-            shard = fut.result()
-            fut = (loader.submit(bins.load_haplotype_shard, paths[i + 1])
+            with span("nsp.s5.load_wait"):
+                shard = fut.result()
+            fut = (loader.submit(load, paths[i + 1])
                    if i + 1 < len(paths) else None)
             if len(shard) == 0:
                 continue
             if cur_contig is not None and shard.contig != cur_contig:
                 flush_contig(out_f)
             cur_contig = shard.contig
-            if defer_frac > 0.0:
-                shard, n_drop = _defer_unphased(shard, defer_frac)
-                n_deferred += n_drop
-                n_sites += n_drop   # deferred sites still count as seen
-                if len(shard) == 0:
-                    continue
-            seq = ref.contig(shard.contig)
-            dp_b = bins.depth_bucket(shard.pileup["sequences"].shape[1])
-            dh_b = bins.depth_bucket(shard.haplotype["sequences"].shape[1])
-            # order matches the featurizer's signature (seq, baseq, mapq,
-            # hap), not bins._KEYS, which lists hap second
-            args = []
-            for view, db in (("pileup", dp_b), ("haplotype", dh_b)):
-                d = getattr(shard, view)
-                n_pad = db - d["sequences"].shape[1]
-                for k in ("sequences", "baseq", "mapq", "hap"):
-                    a = d[k] if n_pad == 0 else np.pad(
-                        d[k], ((0, 0), (0, n_pad), (0, 0)),
-                        constant_values=C.PAD_VALUE)
-                    args.append(a.astype(bins._KEY_DTYPE[k], copy=False))
-                if view == "pileup":
-                    args.append(ref_window_codes(
-                        seq, shard.candidate_positions,
-                        cfg.haplotype_feature.pileup_flanking_size
-                    ).astype(np.int8))
-                else:
-                    args.append(ref_position_codes(
-                        seq, shard.group_positions).astype(np.int8))
-            key = (dp_b, dh_b)
-            pool = pools.setdefault(key, {"chunks": [], "meta": []})
-            pool["chunks"].append(args)
-            pool["meta"].extend(
-                (shard.contig, int(p)) for p in shard.candidate_positions)
-            n_sites += len(shard)
+            with span("nsp.s5.pool"):
+                if defer_frac > 0.0:
+                    shard, n_drop = _defer_unphased(shard, defer_frac)
+                    n_deferred += n_drop
+                    n_sites += n_drop   # deferred sites still count as seen
+                    if len(shard) == 0:
+                        continue
+                seq = ref.contig(shard.contig)
+                dp_b = bins.depth_bucket(shard.pileup["sequences"].shape[1])
+                dh_b = bins.depth_bucket(shard.haplotype["sequences"].shape[1])
+                # order matches the featurizer's signature (seq, baseq, mapq,
+                # hap), not bins._KEYS, which lists hap second
+                args = []
+                for view, db in (("pileup", dp_b), ("haplotype", dh_b)):
+                    d = getattr(shard, view)
+                    n_pad = db - d["sequences"].shape[1]
+                    for k in ("sequences", "baseq", "mapq", "hap"):
+                        a = d[k] if n_pad == 0 else np.pad(
+                            d[k], ((0, 0), (0, n_pad), (0, 0)),
+                            constant_values=C.PAD_VALUE)
+                        args.append(a.astype(bins._KEY_DTYPE[k], copy=False))
+                    if view == "pileup":
+                        args.append(ref_window_codes(
+                            seq, shard.candidate_positions,
+                            cfg.haplotype_feature.pileup_flanking_size
+                        ).astype(np.int8))
+                    else:
+                        args.append(ref_position_codes(
+                            seq, shard.group_positions).astype(np.int8))
+                key = (dp_b, dh_b)
+                pool = pools.setdefault(key, {"chunks": [], "meta": []})
+                pool["chunks"].append(args)
+                pool["meta"].extend(
+                    (shard.contig, int(p)) for p in shard.candidate_positions)
+                n_sites += len(shard)
             if len(pool["meta"]) >= model_bs:
                 flush(key, final=False)
         flush_contig(out_f)

@@ -44,6 +44,7 @@ import torch
 
 from ..ops.bilstm import LAUNCHES
 from ..parallel.mesh import world
+from ..utils.profiling import count, span
 from .optim import Optimizer
 
 # step(batch, row) -> metrics: one optimizer update from `batch` (a dict
@@ -87,7 +88,13 @@ class GroupRunner:
     `steps` counts the steps each route ran: "graph" (replays), "eager"
     (full groups run eagerly), "partial" (partial groups); `graphs` holds
     one record a capture: the batch shape, its seconds, the bytes the
-    graph's memory pool took, the launches of one replay."""
+    graph's memory pool took, the launches of one replay.
+
+    While tracing is on (utils/profiling.py), a group is span
+    `nsp.group.run`, in turn `nsp.group.stage` (staging), `.launch` (the
+    copies, the replay or eager steps, a capture) and `.fetch` (the host
+    waits for the metrics), and counter `nsp.h2d_bytes` adds the bytes
+    staged."""
 
     def __init__(self, step_fn: StepFn, tx: Optimizer, state,
                  generator: Optional[torch.Generator], device: torch.device,
@@ -109,16 +116,36 @@ class GroupRunner:
         """One group: the batches (host arrays of one shape) in order, the
         frozen leaves' updates scaled by 1 - freeze_on. -> the metrics of
         each step, stacked [n, ...] on the host."""
+        with span("nsp.group.run"):
+            n = len(batches)
+            if not 1 <= n <= self.group:
+                raise ValueError(f"a group holds 1 to {self.group} batches, "
+                                 f"got {n}")
+            key = tuple((k, v.shape, v.dtype.str)
+                        for k, v in sorted(batches[0].items()))
+            slot = self.slots.get(key)
+            if slot is None:
+                slot = self.slots[key] = _Slot(batches[0], self.group,
+                                               self.tx.n_scalars, self.dev)
+            with span("nsp.group.stage"):
+                self._stage(slot, batches, freeze_on)
+            if self.dev.type == "cpu":
+                with span("nsp.group.launch"):
+                    out = self._steps(slot, n)
+                with span("nsp.group.fetch"):
+                    out = self._host(out)
+                self.steps["eager" if n == self.group else "partial"] += n
+            else:
+                out = self._on_card(slot, n)
+            self.tx.advance(self.state.opt_state, n)
+            return out
+
+    def _stage(self, slot: _Slot, batches, freeze_on: float) -> None:
+        """The group's batches and scalar rows into the slot's staging
+        buffers, once the last copy out of them is done; counts the bytes
+        the copies to the device move (`nsp.h2d_bytes`; on the CPU,
+        where staging is the device buffer, the bytes they would)."""
         n = len(batches)
-        if not 1 <= n <= self.group:
-            raise ValueError(f"a group holds 1 to {self.group} batches, "
-                             f"got {n}")
-        key = tuple((k, v.shape, v.dtype.str)
-                    for k, v in sorted(batches[0].items()))
-        slot = self.slots.get(key)
-        if slot is None:
-            slot = self.slots[key] = _Slot(batches[0], self.group,
-                                           self.tx.n_scalars, self.dev)
         if slot.copied is not None:
             slot.copied.synchronize()   # the last copy out of staging is done
         for k, t in slot.host.items():
@@ -129,36 +156,33 @@ class GroupRunner:
             else:
                 for i, b in enumerate(batches):
                     view[i] = b[k]
-        if self.dev.type == "cpu":
-            out = self._host(self._steps(slot, n))
-            self.steps["eager" if n == self.group else "partial"] += n
-        else:
-            out = self._on_card(slot, n)
-        self.tx.advance(self.state.opt_state, n)
-        return out
+        count("nsp.h2d_bytes", sum(t[:n].nbytes for t in slot.host.values()))
 
     def _on_card(self, slot: _Slot, n: int) -> Dict[str, np.ndarray]:
         caller = torch.cuda.current_stream(self.dev)
         stream = self.stream or caller
         stream.wait_stream(caller)
         with torch.cuda.stream(stream):
-            for k, t in slot.dev.items():
-                t[:n].copy_(slot.host[k][:n], non_blocking=True)
-            slot.copied = torch.cuda.Event()
-            slot.copied.record(stream)
-            if self.use_graphs and n == self.group and slot.warm:
-                if slot.graph is None:
-                    self._capture(slot)
-                slot.graph.replay()
-                for k, v in slot.launches.items():
-                    LAUNCHES[k] += v
-                out = slot.outputs
-                self.steps["graph"] += n
-            else:
-                out = self._steps(slot, n)
-                slot.warm |= n == self.group
-                self.steps["eager" if n == self.group else "partial"] += n
-            host = self._host(out)
+            with span("nsp.group.launch"):
+                for k, t in slot.dev.items():
+                    t[:n].copy_(slot.host[k][:n], non_blocking=True)
+                slot.copied = torch.cuda.Event()
+                slot.copied.record(stream)
+                if self.use_graphs and n == self.group and slot.warm:
+                    if slot.graph is None:
+                        self._capture(slot)
+                    slot.graph.replay()
+                    for k, v in slot.launches.items():
+                        LAUNCHES[k] += v
+                    out = slot.outputs
+                    self.steps["graph"] += n
+                else:
+                    out = self._steps(slot, n)
+                    slot.warm |= n == self.group
+                    self.steps["eager" if n == self.group
+                               else "partial"] += n
+            with span("nsp.group.fetch"):
+                host = self._host(out)
         caller.wait_stream(stream)
         return host
 

@@ -53,6 +53,7 @@ from ..models.pileup_model import PileupModel, init_pileup_params
 from ..parallel.launch import barrier, host_plan, local_device
 from ..parallel.mesh import (all_reduce_mean, all_reduce_sum,
                              broadcast_params, shard_rows, world)
+from ..utils.profiling import count_parameters, session, span
 from .losses import label_smoothing_loss
 from .group import GroupRunner
 from .metrics import ConfusionAccumulator, MetricsLogger
@@ -268,8 +269,6 @@ class Trainer:
             # run keep their own seeds
             _restore(self.state, resume_state(resume_from),
                      self.generator if self.world == 1 else None)
-        from ..utils.profiling import count_parameters
-
         self.logger = None
         if self.rank == 0:
             os.makedirs(out_dir, exist_ok=True)
@@ -315,25 +314,28 @@ class Trainer:
         """The buffered host batches as one group of steps (this rank's
         rows of each in a data-parallel run), then the meter and the
         progress line from the group's metrics."""
-        if self.world > 1:
-            batches = [_rows(b, shard_rows(len(self.labels(b)[0]),
-                                           self.rank, self.world))
-                       for b in batches]
-        m = self.groups.run([self.host_batch(b) for b in batches],
-                            self.freeze)
+        with span("nsp.train.convert"):
+            if self.world > 1:
+                batches = [_rows(b, shard_rows(len(self.labels(b)[0]),
+                                               self.rank, self.world))
+                           for b in batches]
+            host = [self.host_batch(b) for b in batches]
+        m = self.groups.run(host, self.freeze)
         self.state.step += len(batches)
-        for i, b in enumerate(batches):
-            gt_true, zy_true = self.labels(b)
-            self.meter.update(m["loss"][i], m["gt_pred"][i], gt_true,
-                              m["zy_pred"][i], zy_true)
-        if self.state.step % self.log_every < self.groups.group \
-                and self.rank == 0:
-            dt = time.monotonic() - self.t0
-            print(f"[{self.name}] step {self.state.step} "
-                  f"loss {float(m['loss'][-1]):.4f} "
-                  f"gt_acc {float(m['gt_acc'][-1]):.4f} "
-                  f"({self.state.step / dt:.1f} steps/s)")
+        with span("nsp.train.meter"):
+            for i, b in enumerate(batches):
+                gt_true, zy_true = self.labels(b)
+                self.meter.update(m["loss"][i], m["gt_pred"][i], gt_true,
+                                  m["zy_pred"][i], zy_true)
+            if self.state.step % self.log_every < self.groups.group \
+                    and self.rank == 0:
+                dt = time.monotonic() - self.t0
+                print(f"[{self.name}] step {self.state.step} "
+                      f"loss {float(m['loss'][-1]):.4f} "
+                      f"gt_acc {float(m['gt_acc'][-1]):.4f} "
+                      f"({self.state.step / dt:.1f} steps/s)")
 
+    @session("nsp.train.fit")
     def fit(self, data_iter: Iterator, steps_per_epoch: Optional[int],
             max_steps: Optional[int], val_iter_factory,
             eval_fn) -> TrainState:
@@ -342,22 +344,34 @@ class Trainer:
         sentinel every buffer runs, then the epoch ends (with
         steps_per_epoch, after every that many steps); `max_steps` is
         checked after each batch, so the run ends with the group that
-        reaches it."""
+        reaches it.
+
+        A tracing session (utils/profiling.py), `nsp.train.fit`: each
+        batch's `nsp.train.feed` (the iterator's next and the buffering),
+        and each group's `nsp.train.convert` (`host_batch`),
+        `nsp.group.run` and `nsp.train.meter`."""
         from .data import EPOCH_END
 
         bufs: Dict[object, list] = {}
+        done = object()
+        items = iter(data_iter)
 
         def flush_all():
             for key in list(bufs):
                 self.run_group(bufs.pop(key))
 
-        for item in data_iter:
+        while True:
+            with span("nsp.train.feed"):
+                item = next(items, done)
+                if item is not done and item is not EPOCH_END:
+                    key, item = self.buffer_key(item)
+                    bufs.setdefault(key, []).append(item)
+            if item is done:
+                break
             if item is EPOCH_END:
                 flush_all()
                 self.end_epoch(val_iter_factory, eval_fn)
                 continue
-            key, item = self.buffer_key(item)
-            bufs.setdefault(key, []).append(item)
             if len(bufs[key]) >= self.groups.group:
                 self.run_group(bufs.pop(key))
             if steps_per_epoch and self.state.step \
