@@ -19,12 +19,21 @@ where it is not installed they raise ImportError.
 """
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
 import importlib.util
+import io
+import math
 import os
+import struct
+import zipfile
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 import numpy as np
+from numpy.lib import format as npformat
 
 
 # ---------------------------------------------------------------------------
@@ -138,25 +147,188 @@ def _savez_fast(path: str, arrays, compresslevel: int = 1) -> None:
             zf.writestr(f"{name}.npy", buf.getvalue())
 
 
-def open_npz(path: str):
-    """np.load for shard files, transparent to the container codec:
-    plain zip npz (historic shards, NSP_SHARD_CODEC=deflate) or the r5
-    zstd-wrapped npz. Every shard consumer must use this instead of
-    np.load."""
-    with open(path, "rb") as f:
-        head = f.read(4)
-    if head != _ZSTD_MAGIC:
-        return np.load(path)
-    import io as _io
-
+def _zstd_payload(data: bytes, path: str) -> bytes:
+    """The STORED zip inside a zstd-wrapped shard, decompressed in one
+    call into a buffer that the frame header sizes (streamed where the
+    header leaves the size out)."""
     if importlib.util.find_spec("zstandard") is None:
         raise RuntimeError(f"{path} is zstd-compressed but the zstandard "
                            "module is not installed")
     import zstandard as zstd
 
+    dctx = zstd.ZstdDecompressor()
+    if zstd.frame_content_size(data) < 0:
+        return dctx.stream_reader(io.BytesIO(data)).read()
+    return dctx.decompress(data)
+
+
+def open_npz(path: str):
+    """np.load for shard files, transparent to the container codec:
+    plain zip npz (historic shards, NSP_SHARD_CODEC=deflate) or the r5
+    zstd-wrapped npz. Lazy on a deflate zip: a key reads its member
+    alone. For whole shards `_read_npz` is the faster reader."""
     with open(path, "rb") as f:
-        raw = zstd.ZstdDecompressor().stream_reader(f).read()
-    return np.load(_io.BytesIO(raw))
+        head = f.read(4)
+        if head != _ZSTD_MAGIC:
+            return np.load(path)
+        return np.load(io.BytesIO(_zstd_payload(head + f.read(), path)))
+
+
+# Compressed bytes a member's inflate reads from the file at a time: a
+# shard's load holds its arrays and one such piece per member in flight.
+_PIECE = 1 << 20
+
+
+class _ZStream(ctypes.Structure):
+    """zlib.h's z_stream."""
+    _fields_ = [("next_in", ctypes.c_void_p), ("avail_in", ctypes.c_uint),
+                ("total_in", ctypes.c_ulong), ("next_out", ctypes.c_void_p),
+                ("avail_out", ctypes.c_uint), ("total_out", ctypes.c_ulong),
+                ("msg", ctypes.c_char_p), ("state", ctypes.c_void_p),
+                ("zalloc", ctypes.c_void_p), ("zfree", ctypes.c_void_p),
+                ("opaque", ctypes.c_void_p), ("data_type", ctypes.c_int),
+                ("adler", ctypes.c_ulong), ("reserved", ctypes.c_ulong)]
+
+
+_libz = None
+
+
+def _zlib() -> ctypes.CDLL:
+    """The system zlib (which the native engine also links), for inflate
+    into memory the caller owns; ctypes drops the GIL while it runs."""
+    global _libz
+    if _libz is None:
+        z = ctypes.CDLL(ctypes.util.find_library("z") or "libz.so.1")
+        z.zlibVersion.restype = ctypes.c_char_p
+        stream = ctypes.POINTER(_ZStream)
+        z.inflateInit2_.argtypes = [stream, ctypes.c_int, ctypes.c_char_p,
+                                    ctypes.c_int]
+        z.inflate.argtypes = [stream, ctypes.c_int]
+        z.inflateEnd.argtypes = [stream]
+        _libz = z
+    return _libz
+
+
+def _inflate_into(fd: int, at: int, size: int, out: np.ndarray,
+                  name: str) -> None:
+    """Inflates the raw deflate stream of `size` bytes at file offset `at`
+    into `out`, which it must fill exactly."""
+    z, s = _zlib(), _ZStream()
+    if z.inflateInit2_(ctypes.byref(s), -15, z.zlibVersion(),
+                       ctypes.sizeof(s)) != 0:
+        raise MemoryError(f"{name}: inflateInit2 failed")
+    piece = bytearray(max(1, min(_PIECE, size)))
+    piece_at = ctypes.addressof(ctypes.c_char.from_buffer(piece))
+    end, put, rc = at + size, 0, 0
+    try:
+        while True:
+            if s.avail_in == 0 and at < end:
+                n = os.preadv(fd, [memoryview(piece)[:end - at]], at)
+                if n <= 0:
+                    break
+                at += n
+                s.next_in, s.avail_in = piece_at, n
+            if s.avail_out == 0 and put < out.nbytes:
+                n = min(out.nbytes - put, 1 << 30)     # avail_out is 32-bit
+                s.next_out, s.avail_out = out.ctypes.data + put, n
+                put += n
+            rc = z.inflate(ctypes.byref(s), 0)          # Z_NO_FLUSH
+            if rc == 1:                                 # Z_STREAM_END
+                break
+            if rc != 0 and not (rc == -5 and s.avail_in == 0 and at < end):
+                raise zipfile.BadZipFile(f"{name}: inflate error {rc}")
+    finally:
+        z.inflateEnd(ctypes.byref(s))
+    if rc != 1 or s.total_out != out.nbytes:
+        raise zipfile.BadZipFile(f"{name}: truncated or oversized member")
+
+
+def _npy_view(img: np.ndarray) -> np.ndarray:
+    """The array of a .npy image, in place: np.load's dtype, shape and
+    order, writable. Anything but a plain array under format 1.0 or 2.0
+    goes through numpy's own reader (a copy; it refuses object arrays)."""
+    fp = io.BytesIO(img[:1 << 16].tobytes())
+    read_header = {(1, 0): npformat.read_array_header_1_0,
+                   (2, 0): npformat.read_array_header_2_0
+                   }.get(npformat.read_magic(fp))
+    if read_header is not None:
+        shape, fortran, dtype = read_header(fp)
+        if not dtype.hasobject:
+            flat = np.frombuffer(img, dtype, math.prod(shape), fp.tell())
+            return (flat.reshape(shape[::-1]).T if fortran
+                    else flat.reshape(shape))
+    return npformat.read_array(io.BytesIO(img))
+
+
+def _member(fd: int, info: zipfile.ZipInfo) -> np.ndarray:
+    """One member of a zip shard: its bytes after the local header read
+    (STORED) or inflated (deflate) straight into one buffer of its raw
+    size, checked against the central directory's CRC-32 as zipfile
+    checks it, and its .npy image viewed as the array."""
+    head = os.pread(fd, 30, info.header_offset)
+    if (len(head) < 30 or head[:4] != b"PK\x03\x04"
+            or info.flag_bits & 0x1):
+        raise zipfile.BadZipFile(f"{info.filename}: bad or encrypted "
+                                 "local header")
+    name_len, extra_len = struct.unpack_from("<HH", head, 26)
+    at = info.header_offset + 30 + name_len + extra_len
+    img = np.empty(info.file_size, np.uint8)
+    if info.compress_type == zipfile.ZIP_DEFLATED:
+        _inflate_into(fd, at, info.compress_size, img, info.filename)
+    elif info.compress_type == zipfile.ZIP_STORED:
+        got = 0
+        while got < img.nbytes:
+            n = os.preadv(fd, [img[got:]], at + got)
+            if n <= 0:
+                raise zipfile.BadZipFile(f"{info.filename}: truncated")
+            got += n
+    else:
+        raise zipfile.BadZipFile(f"{info.filename}: compression "
+                                 f"{info.compress_type} is not supported")
+    if zlib.crc32(img) != info.CRC:
+        raise zipfile.BadZipFile(f"Bad CRC-32 for file {info.filename!r}")
+    return _npy_view(img)
+
+
+def _cores() -> int:
+    """The CPUs this process may run on (its affinity, where the OS
+    says)."""
+    try:
+        return len(os.sched_getaffinity(0))
+    except AttributeError:
+        return os.cpu_count() or 1
+
+
+def _read_npz(path: str) -> Dict[str, np.ndarray]:
+    """Every array of a shard file, as np.load returns them (writable).
+    A deflate zip's members are independent streams: each is inflated in
+    one pass into its own buffer, concurrently on a thread pool as wide
+    as the smaller of their number and this process's CPUs (zlib runs
+    outside the GIL). A zstd-wrapped shard is one frame: it is
+    decompressed in one call and its members are read on the calling
+    thread. Counts nsp.shard.members_parallel and
+    nsp.shard.members_inline."""
+    from ..utils.profiling import count
+
+    with open(path, "rb") as f:
+        wrapped = f.read(4) == _ZSTD_MAGIC
+    if wrapped:
+        with open_npz(path) as z:
+            arrays = {k: z[k] for k in z.files}
+        count("nsp.shard.members_inline", len(arrays))
+        return arrays
+    with zipfile.ZipFile(path) as zf:
+        infos = zf.infolist()
+    count("nsp.shard.members_parallel", len(infos))
+    _zlib()
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        with ThreadPoolExecutor(max(1, min(len(infos), _cores()))) as pool:
+            got = pool.map(lambda i: _member(fd, i), infos)
+            return {i.filename.removesuffix(".npy"): a
+                    for i, a in zip(infos, got)}
+    finally:
+        os.close(fd)
 
 
 def save_pileup_shard(path: str, shard: PileupShard) -> None:
@@ -359,7 +531,7 @@ def save_haplotype_shard(path: str, shard: HaplotypeShard) -> None:
 
 
 def load_haplotype_shard(path: str) -> HaplotypeShard:
-    z = open_npz(path)
+    z = _read_npz(path)
     return HaplotypeShard(
         contig=str(z["contig"]),
         candidate_positions=z["candidate_positions"],

@@ -200,7 +200,8 @@ def _hap_shard_world(tmp_path, rng):
     return fasta.FastaReference(fa), str(shard_dir), staged
 
 
-def test_s5_spans_threads_and_staged_bytes(tmp_path):
+def test_s5_spans_threads_and_staged_bytes(tmp_path, monkeypatch):
+    monkeypatch.setenv("NSP_SHARD_CODEC", "deflate")
     rng = np.random.default_rng(8)
     ref, shard_dir, staged = _hap_shard_world(tmp_path, rng)
     cfg = PipelineConfig()
@@ -235,7 +236,9 @@ def test_s5_spans_threads_and_staged_bytes(tmp_path):
     assert "nsp.s5.load" not in ann
     assert {k: len(v) for k, v in ann.items()} == {
         k: len(v) for k, v in names.items() if k != "nsp.s5.load"}
-    assert snap["counters"] == {"nsp.h2d_bytes": staged}
+    # two deflate shards of 11 members each, read on the reader's pool
+    assert snap["counters"] == {"nsp.h2d_bytes": staged,
+                                "nsp.shard.members_parallel": 22}
 
 
 def test_worker_span_lies_on_the_trace_clock(tmp_path, monkeypatch):
