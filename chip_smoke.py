@@ -82,7 +82,9 @@
   phase 2c the legacy CatModel at full width: two tags of 16k-group legacy
            bins -> legacy-predict and legacy-eval (CLI, batch 8192) on the
            card, its probabilities against the kernel path's plain version
-           on the CPU on a small input, then a few legacy-train steps.
+           on the CPU on a small input, then two epochs of legacy-train
+           (batch 64) through the CatModel trainer, on the training
+           kernels, its second epoch's full group by graph replay.
   phase 3  trains both models through the CLI at full width: train-pileup
            on 40k labeled windows (batch 2000) and train-haplotype on 10k
            sites in depth buckets 64 and 96 with a truth VCF (batch 512),
@@ -1984,7 +1986,7 @@ def phase_legacy(dev):
                             str(N_TIME)], "legacy_calls.tsv"),
         ("legacy-eval", [*tags(), *truth, "--model", model_path,
                          "--batch-size", str(N_TIME)], "legacy_eval.tsv"),
-        ("legacy-train", [*tags("train_"), *truth, "--epochs", "1",
+        ("legacy-train", [*tags("train_"), *truth, "--epochs", "2",
                           "--batch-size", "64"], "catmodel.npz"))
     for name, argv, product in runs:
         out = os.path.join(WORK, "out_" + name)
@@ -2005,9 +2007,13 @@ def phase_legacy(dev):
                 "lstm_recurrence_train"]:
             raise AssertionError(f"{name}: wrong recurrence kernel: "
                                  f"{launches[name]}")
-    if any(launches["legacy-train"].values()):
-        raise AssertionError("legacy-train trains on the f32 recurrence: "
-                             f"no kernel expected, {launches['legacy-train']}")
+    # the CatModel trainer: five BiLSTM layers a step on the training
+    # kernels, the percentage stack's dropout included
+    if any(launches["legacy-train"].get(k, 0) <= 0 for k in (
+            "lstm_recurrence_train", "lstm_recurrence_bwd",
+            "lstm_dw_reduce")):
+        raise AssertionError("legacy-train: no training kernel launched: "
+                             f"{launches['legacy-train']}")
 
     calls = _body(os.path.join(WORK, "out_legacy-predict",
                                "legacy_calls.tsv"))

@@ -22,9 +22,12 @@ Convolutions and max-pools are torch's (they are XLA ops outside any
 Pallas kernel in the JAX package); BatchNorm is written out, because the
 JAX package normalises and updates its running variance with the biased
 batch variance, which torch's batch_norm does not. The three BiLSTM
-stacks run the f32 recurrence (the reference path, and training) or, with
-`use_kernels`, an f32 in-projection product and the inference recurrence
-kernel with bf16 w_hh, as the JAX package's `use_pallas` does.
+stacks run the f32 recurrence (the reference path, and training on the
+CPU) or, with `use_kernels`, an f32 in-projection product and the
+recurrence kernels with bf16 w_hh: the inference kernel without a
+gradient, as the JAX package's `use_pallas` does, and the training
+kernels under autograd, the percentage stack's dropout included (the
+JAX package takes its scan path whenever dropout is on).
 """
 from __future__ import annotations
 
@@ -146,9 +149,10 @@ class CatModel(nn.Module):
         adjacent-het) -> gt logits [N, classes]. `train` uses batch
         statistics in the BatchNorms and updates their running statistics
         in place; dropout (0.5 between the percentage RNN's layers) is
-        active only in training with a generator. `use_kernels` runs the
-        three BiLSTM stacks on the recurrence kernels (bf16 w_hh); without
-        a gradient that is the inference kernel."""
+        active only in training with a generator, its masks drawn from
+        it. `use_kernels` runs the three BiLSTM stacks on the recurrence
+        kernels (bf16 w_hh), with or without dropout: without a gradient
+        the inference kernel, with one the training kernels."""
         md = g0.shape[1] // 2
         # ---- percentage branch (model.py:263-281)
         reads0 = g0[..., 0].transpose(1, 2)              # [N, 11, 2md]
@@ -158,10 +162,8 @@ class CatModel(nn.Module):
                          calculate_percentage(reads1[..., :md]),
                          calculate_percentage(reads1[..., md:])],
                         dim=2)                           # [N, 11, 20]
-        dropping = generator is not None
         p_out = self.percentage_proj(bilstm_encoder_train(
-            self.percentage_rnn.layers, pct,
-            use_kernels=use_kernels and not dropping,
+            self.percentage_rnn.layers, pct, use_kernels=use_kernels,
             dropout=0.5 if train else 0.0, generator=generator))
         p_ctr = p_out[:, p_out.shape[1] // 2]            # [N, 256]
 

@@ -19,8 +19,9 @@ trainers the f32 path, as the JAX trainer does off the TPU):
   legacy-make-groups  pileup VCF + BAM(s) -> per-contig legacy bins
   legacy-predict   dual-tag legacy bins + CatModel params -> legacy_calls.tsv
   legacy-eval      the same against truth labels -> legacy_eval.tsv
-  legacy-train     dual-tag legacy bins + truth -> catmodel.npz (the f32
-                   recurrence under autograd, as the JAX package trains it)
+  legacy-train     dual-tag legacy bins + truth -> catmodel.npz (the
+                   port's trainer: groups of steps, the training kernels
+                   and a CUDA graph a group on the card)
   legacy-filter-labels  label-noise positions -> filtered_positions.txt
   legacy-heuristic      edge-graph homozygote caller (numpy, no device)
   evaluate-pileup  labeled pileup arrays (.npz) + a checkpoint -> gt/zy
@@ -499,18 +500,23 @@ def _legacy_labeled_bins(args):
 
 
 def _run_legacy_train(args, cfg) -> int:
+    """The images of every aligned site built once, as int8; then
+    `args.epochs` epochs through the CatModel trainer (legacy/train.py),
+    each selecting its sites as the reference does. One record an epoch
+    at the end: epoch, mean loss, steps, sites."""
     import numpy as np
     import torch
 
     from ..legacy.catmodel import init_catmodel_params
-    from ..legacy.train import select_training_sites, train_catmodel
-    from ..models.convert import save_params_npz
+    from ..legacy.train import (CatModelTrainer, int8_images,
+                                select_training_sites)
 
     md = args.max_depth
     datasets = []
     for (_name, b1, b2, idx1, idx2, _ctg, _centers,
          labels) in _legacy_labeled_bins(args):
-        datasets.append((*_legacy_images(b1, b2, idx1, idx2, md), labels))
+        datasets.append((*map(int8_images, _legacy_images(
+            b1, b2, idx1, idx2, md)), labels))
     if not datasets:
         print({"error": "no aligned training sites"})
         return 1
@@ -518,31 +524,21 @@ def _run_legacy_train(args, cfg) -> int:
     g0 = np.concatenate([d[0] for d in datasets])
     g1 = np.concatenate([d[1] for d in datasets])
     labels = np.concatenate([d[2] for d in datasets])
-    rng = np.random.default_rng(args.seed)
     n_cls = args.gt_classes
+    # the selection is empty in every epoch or in none: no variant site
+    if not len(select_training_sites(labels, np.random.default_rng(0),
+                                     n_classes=n_cls)):
+        print({"error": "no confident SNV-labeled sites"})
+        return 1
     params = init_catmodel_params(torch.Generator().manual_seed(args.seed),
                                   gt_classes=n_cls)
-    for epoch in range(args.epochs):
-        idx = select_training_sites(labels, rng, n_classes=n_cls)
-        if len(idx) == 0:
-            print({"error": "no confident SNV-labeled sites"})
-            return 1
-
-        def batches():
-            for s in range(0, len(idx) - args.batch_size + 1,
-                           args.batch_size):
-                sel = idx[s:s + args.batch_size]
-                yield g0[sel], g1[sel], labels[sel, 1]
-
-        params, loss, steps = train_catmodel(
-            params, batches(), lr=args.lr, seed=args.seed + epoch,
-            device=args.device)
-        print({"epoch": epoch + 1, "loss": round(loss, 4),
-               "steps": steps, "sites": len(idx)})
-        save_params_npz(os.path.join(args.output,
-                                     f"catmodel_epoch{epoch + 1}.npz"),
-                        params)
-    save_params_npz(os.path.join(args.output, "catmodel.npz"), params)
+    tr = CatModelTrainer(params, lr=args.lr, batch_size=args.batch_size,
+                         seed=args.seed, device=args.device,
+                         out_dir=args.output, gt_classes=n_cls)
+    tr.fit(tr.feed(g0, g1, labels, np.random.default_rng(args.seed),
+                   args.epochs), None, None, None, None)
+    for rec in tr.history:
+        print(rec)
     return 0
 
 

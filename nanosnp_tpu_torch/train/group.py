@@ -22,8 +22,11 @@ here takes one of four routes, chosen from where it runs:
   the CPU                 every group eagerly: the path the tests hold
                           against the JAX package.
 
-Groups of one step (`steps_per_call: 1`) are single eager steps. Every
-route runs the same step function on the same static buffers: the
+Groups of one step (`steps_per_call: 1`) are single eager steps. State
+that a step moves in place outside the optimizer (the CatModel's
+BatchNorm running statistics) is captured and replayed with the rest of
+the step. Every route runs the same step function on the same static
+buffers: the
 batches stacked [G, ...] and the optimizer's scalar table [G, S]
 (optim.Optimizer.scalar_table), filled on the card from pinned staging
 buffers by non-blocking copies. A capture raises if it fails; nothing

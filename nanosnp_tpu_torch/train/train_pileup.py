@@ -33,10 +33,12 @@ overshoot it to the end of a group, as in JAX.
 """
 from __future__ import annotations
 
+import copy
 import json
 import os
 import pickle
 import time
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterator, Optional, Tuple
 
@@ -68,13 +70,24 @@ __all__ = ["TrainState", "EpochMeter", "freeze_mask_fn", "init_state",
 
 @dataclass
 class TrainState:
-    """The model holds the fast params; `slow` the Lookahead slow params
-    (a tree like model.tree(), None without Lookahead)."""
+    """The model holds the fast params and any state that is not
+    trainable (the CatModel's BatchNorm running statistics: leaves of
+    model.tree() that take no gradient, moved by the forward pass alone);
+    `slow` the Lookahead slow params (a tree like model.tree(), None
+    without Lookahead). The optimizer's per-leaf state follows the
+    trainable leaves (`trainable`)."""
     model: nn.Module
     opt_state: dict
     slow: Optional[dict] = None
     step: int = 0
     epoch: int = 0
+
+
+def trainable(tree) -> list:
+    """A flag for each leaf of `tree` in flatten_tree order: whether the
+    optimizer updates it (it takes a gradient). The others are state the
+    forward pass moves and the optimizer skips."""
+    return [p.requires_grad for _, p in flatten_tree(tree)]
 
 
 def init_state(model: nn.Module, tx: Optimizer) -> TrainState:
@@ -84,7 +97,9 @@ def init_state(model: nn.Module, tx: Optimizer) -> TrainState:
         # distinct buffers, as wrap_params_for_lookahead makes
         slow = unflatten_like(model.tree(),
                               [p.detach().clone() for p in leaves])
-    return TrainState(model, tx.init(leaves), slow)
+    mask = trainable(model.tree())
+    return TrainState(model, tx.init([p for p, m in zip(leaves, mask) if m]),
+                      slow)
 
 
 def freeze_mask_fn(freeze_prefixes: Tuple[str, ...]):
@@ -104,13 +119,16 @@ def apply_gradients(state: TrainState, tx: Optimizer, loss: torch.Tensor,
     leaf the loss does not reach, such as the unused indel heads, as
     jax.grad gives), averaged over the ranks of a data-parallel run, then
     one optimizer update in place with the scalars of `row` (a row of
-    tx.scalar_table on the device; the counts do not move)."""
-    flat = flatten_tree(state.model.tree())
+    tx.scalar_table on the device; the counts do not move). Leaves that
+    are not trainable (`trainable`) take no gradient and no update."""
+    tree = state.model.tree()
+    mask = trainable(tree)
+    flat = [item for item, m in zip(flatten_tree(tree), mask) if m]
     params = [p for _, p in flat]
     grads = all_reduce_mean(torch.autograd.grad(
         loss, params, allow_unused=True, materialize_grads=True))
     slow = None if state.slow is None else [
-        p for _, p in flatten_tree(state.slow)]
+        p for (_, p), m in zip(flatten_tree(state.slow), mask) if m]
     tx.update(params, grads, state.opt_state, row, slow,
               [is_frozen(path) for path, _ in flat])
 
@@ -191,11 +209,12 @@ def make_pileup_eval_step(mcfg: PileupModelConfig, tcfg: TrainConfig):
 
 
 class EpochMeter:
-    """Accumulates loss + gt/zy confusion over one epoch's batches."""
+    """Accumulates loss + gt/zy confusion over one epoch's batches (gt
+    alone for a model without a zygosity head: n_zy 0, zy None)."""
 
     def __init__(self, n_gt: int, n_zy: int):
         self.gt = ConfusionAccumulator(n_gt)
-        self.zy = ConfusionAccumulator(n_zy)
+        self.zy = ConfusionAccumulator(n_zy) if n_zy else None
         self.loss_sum = 0.0
         self.batches = 0
 
@@ -203,12 +222,14 @@ class EpochMeter:
         self.loss_sum += float(loss)
         self.batches += 1
         self.gt.update(_host(gt_pred), _host(gt_true))
-        self.zy.update(_host(zy_pred), _host(zy_true))
+        if self.zy is not None:
+            self.zy.update(_host(zy_pred), _host(zy_true))
 
     def scalars(self) -> Dict[str, float]:
         out = {"loss": round(self.loss_sum / max(self.batches, 1), 6)}
         out.update(self.gt.summary("gt_"))
-        out.update(self.zy.summary("zy_"))
+        if self.zy is not None:
+            out.update(self.zy.summary("zy_"))
         return out
 
     def all_reduce(self) -> None:
@@ -217,13 +238,13 @@ class EpochMeter:
         (each rank's loss is its slice's mean, and the slices are equal)."""
         if world() <= 1:
             return
-        loss, gt, zy = all_reduce_sum([
-            torch.tensor([self.loss_sum], dtype=torch.float64),
-            torch.from_numpy(self.gt.matrix).double(),
-            torch.from_numpy(self.zy.matrix).double()])
+        meters = [m for m in (self.gt, self.zy) if m is not None]
+        loss, *sums = all_reduce_sum(
+            [torch.tensor([self.loss_sum], dtype=torch.float64)]
+            + [torch.from_numpy(m.matrix).double() for m in meters])
         self.loss_sum = float(loss) / world()
-        self.gt.matrix = gt.numpy().astype(np.int64)
-        self.zy.matrix = zy.numpy().astype(np.int64)
+        for m, total in zip(meters, sums):
+            m.matrix = total.numpy().astype(np.int64)
 
 
 def _host(a) -> np.ndarray:
@@ -239,7 +260,12 @@ class Trainer:
 
     In a data-parallel run (a process group of several ranks) the rank
     trains on its slice of each global batch on its own device; rank 0
-    alone writes, and every rank waits for it at each epoch's end."""
+    alone writes, and the ranks meet at each epoch's end.
+
+    A checkpoint is written on a writer thread from a host copy taken
+    when it is asked for, so the card trains on meanwhile; the next
+    write, `finish` and `wait_for_writes` wait for it. A subclass may
+    give its checkpoints other names and another layout (`_checkpoint`)."""
 
     def __init__(self, name, model_cls, mcfg, tcfg, init_params, device,
                  use_kernels, steps_per_epoch, lr_steps_per_epoch, out_dir,
@@ -278,6 +304,8 @@ class Trainer:
                   + (f", {self.world} data-parallel ranks"
                      if self.world > 1 else ""))
         self.meter = EpochMeter(mcfg.gt_num_class, mcfg.zy_num_class)
+        self._writer: Optional[ThreadPoolExecutor] = None
+        self._write: Optional[Future] = None
         self.best_metric = float("-inf")
         self.freeze = 0.0
         # the JAX trainers group steps only when epochs are marked in the
@@ -303,11 +331,12 @@ class Trainer:
         raise NotImplementedError
 
     def run_eval(self, batch):
-        """-> (loss, gt_pred, zy_pred, gt_true, zy_true) of a host batch."""
+        """-> (loss, gt_pred, zy_pred, gt_true, zy_true) of a host batch
+        (zy None without a zygosity head)."""
         raise NotImplementedError
 
     def labels(self, batch):
-        """(gt, zy) of a host batch."""
+        """(gt, zy) of a host batch (zy None without a zygosity head)."""
         raise NotImplementedError
 
     def run_group(self, batches) -> None:
@@ -323,10 +352,12 @@ class Trainer:
         m = self.groups.run(host, self.freeze)
         self.state.step += len(batches)
         with span("nsp.train.meter"):
+            zy_pred = m.get("zy_pred")
             for i, b in enumerate(batches):
                 gt_true, zy_true = self.labels(b)
                 self.meter.update(m["loss"][i], m["gt_pred"][i], gt_true,
-                                  m["zy_pred"][i], zy_true)
+                                  None if zy_pred is None else zy_pred[i],
+                                  zy_true)
             if self.state.step % self.log_every < self.groups.group \
                     and self.rank == 0:
                 dt = time.monotonic() - self.t0
@@ -395,9 +426,27 @@ class Trainer:
             vm.update(loss, gtp, gtt, zyp, zyt)
         return vm.scalars() if vm.batches else None
 
+    def _checkpoint(self, name: str, **kw):
+        """-> (path, write(path, payload), payload) of checkpoint `name`,
+        the payload a host copy of what it holds: here the state as
+        save_checkpoint pickles it."""
+        return (os.path.join(self.out_dir, name), _write_pickle,
+                checkpoint_blob(self.state, **kw))
+
     def _save(self, name: str, **kw) -> None:
-        if self.rank == 0:
-            save_checkpoint(os.path.join(self.out_dir, name), self.state, **kw)
+        if self.rank:
+            return
+        path, write, payload = self._checkpoint(name, **kw)
+        self.wait_for_writes()
+        if self._writer is None:
+            self._writer = ThreadPoolExecutor(1, "nsp-checkpoint")
+        self._write = self._writer.submit(write, path, payload)
+
+    def wait_for_writes(self) -> None:
+        """Wait for the checkpoint being written, raising what it raised."""
+        if self._write is not None:
+            write, self._write = self._write, None
+            write.result()
 
     def end_epoch(self, val_iter_factory, eval_fn) -> None:
         st = self.state
@@ -431,6 +480,10 @@ class Trainer:
     def finish(self) -> TrainState:
         self._save("last.ckpt", include_optimizer=True,
                    generator=self.generator)
+        self.wait_for_writes()
+        if self._writer is not None:
+            self._writer.shutdown()
+            self._writer = None
         # every rank: the steps each route of the group runner ran
         print(json.dumps({"train_groups": dict(
             name=self.name, rank=self.rank, ranks=self.world,
@@ -517,6 +570,18 @@ def save_checkpoint(path: str, state: TrainState,
     include_optimizer the full training state too (fast and slow params,
     optimizer state, and the dropout generator's state, so that a resumed
     run draws the masks an uninterrupted one would)."""
+    _write_pickle(path, checkpoint_blob(state, include_optimizer, generator))
+
+
+def _write_pickle(path: str, blob: dict) -> None:
+    with open(path, "wb") as f:
+        pickle.dump(blob, f)
+
+
+def checkpoint_blob(state: TrainState, include_optimizer: bool = False,
+                    generator: Optional[torch.Generator] = None) -> dict:
+    """What save_checkpoint pickles, as host arrays of their own (copies,
+    never views of tensors that training moves on)."""
     tree = state.model.tree()
     blob = {"params": params_to_numpy(tree), "step": state.step,
             "epoch": state.epoch}
@@ -533,8 +598,7 @@ def save_checkpoint(path: str, state: TrainState,
             for k, v in state.opt_state.items()}
         if generator is not None:
             blob["generator_state"] = generator.get_state().numpy()
-    with open(path, "wb") as f:
-        pickle.dump(blob, f)
+    return copy.deepcopy(blob)
 
 
 def load_checkpoint(path: str):

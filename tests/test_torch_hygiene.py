@@ -152,10 +152,11 @@ def test_legacy_clis_ask_for_the_card_and_raise_before_writing(tmp_path, cmd):
     assert not (tmp_path / "out").exists()
 
 
-def test_legacy_trainer_raises_without_a_card():
+def test_legacy_trainer_raises_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a card")
-    from nanosnp_tpu_torch.legacy.train import train_catmodel
+    from nanosnp_tpu_torch.legacy.train import CatModelTrainer
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        train_catmodel({}, iter([]))
+        CatModelTrainer({}, out_dir=str(tmp_path / "out"))
+    assert not (tmp_path / "out").exists()

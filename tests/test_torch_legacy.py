@@ -41,6 +41,9 @@ from nanosnp_tpu_torch.models.convert import (flatten_tree, load_params_npz,
                                               params_from_jax,
                                               params_to_numpy)
 from nanosnp_tpu_torch.runtime.cli import main as torch_cli
+from nanosnp_tpu_torch.train.data import EPOCH_END
+from nanosnp_tpu_torch.train.optim import Optimizer
+from nanosnp_tpu_torch.train.train_pileup import trainable
 
 # f32 on both sides: convolution and matmul summation order only
 F32_TOL = 1e-5
@@ -137,6 +140,14 @@ def _jax_loss(p, g0, g1, y):
     return optax.softmax_cross_entropy(logits, smoothed).mean(), new_p
 
 
+def _trainable_leaves(model):
+    """The leaves Adam updates, in the tree's order: everything but the
+    BatchNorm running statistics."""
+    tree = model.tree()
+    return [leaf for (_, leaf), m in zip(flatten_tree(tree), trainable(tree))
+            if m]
+
+
 def test_train_step_without_dropout_matches_jax(jax_params):
     rng = np.random.default_rng(23)
     g0, g1 = _images(rng, 8)
@@ -148,7 +159,7 @@ def test_train_step_without_dropout_matches_jax(jax_params):
     logits = model(torch.from_numpy(g0), torch.from_numpy(g1), train=True)
     loss = ttrain.smoothed_cross_entropy(logits, torch.from_numpy(y))
     assert abs(float(loss.detach()) - float(want_loss)) < F32_TOL
-    leaves = ttrain.trainable_leaves(model)
+    leaves = _trainable_leaves(model)
     grads = torch.autograd.grad(loss, leaves)
     by_id = {id(p): g for p, g in zip(leaves, grads)}
     want_flat = flatten_tree(jax.tree.map(np.asarray, want_g))
@@ -171,7 +182,7 @@ def test_train_step_without_dropout_matches_jax(jax_params):
     assert not np.allclose(model.res_blocks[0].bn1.mean.numpy(), 0.0)
 
 
-def test_adam_steps_match_optax(jax_params):
+def test_adam_steps_match_optax(jax_params, tmp_path):
     rng = np.random.default_rng(31)
     batches = []
     for _ in range(3):
@@ -196,15 +207,25 @@ def test_adam_steps_match_optax(jax_params):
             for bp, nb in zip(p["res_blocks"], new_p["res_blocks"])]}
         want_losses.append(float(loss))
 
-    lines = []
-    got, mean_loss, steps = ttrain.train_catmodel(
-        _carry(jax_params), iter(batches), lr=1e-3, device="cpu",
-        dropout=False, log_every=1, log=lines.append)
-    assert steps == 3 and len(lines) == 3
-    assert abs(mean_loss - np.mean(want_losses)) < 1e-4
-    # the later losses depend on the earlier updates (printed to 4 places)
-    for line, want in zip(lines, want_losses):
-        assert abs(float(line.split()[-1]) - want) < 2e-4, line
+    # the port's CatModel trainer, its three steps one partial group
+    tr = ttrain.CatModelTrainer(_carry(jax_params), lr=1e-3, batch_size=6,
+                                device="cpu", dropout=False,
+                                out_dir=str(tmp_path))
+    losses, run = [], tr.groups.run
+
+    def keep(batches, freeze_on=0.0):
+        m = run(batches, freeze_on)
+        losses.extend(m["loss"])
+        return m
+    tr.groups.run = keep
+    tr.fit(({"g0": g0, "g1": g1, "y": y} for g0, g1, y in batches), None,
+           None, None, None)
+    got = tr.state.model.tree()
+    assert tr.state.step == 3 and len(losses) == 3
+    assert abs(np.mean(losses) - np.mean(want_losses)) < 1e-4
+    # the later losses depend on the earlier updates
+    for step, (loss, want) in enumerate(zip(losses, want_losses)):
+        assert abs(float(loss) - want) < 2e-4, step
     # Adam's first steps move every weight by about lr whatever the
     # gradient's size, so where a gradient is within rounding of zero the
     # two runs step in opposite directions (a few percent of the entries):
@@ -223,6 +244,54 @@ def test_adam_steps_match_optax(jax_params):
         assert du @ dw / np.sqrt((du @ du) * (dw @ dw)) > 0.99, path
 
 
+def test_each_epoch_starts_adam_and_dropout_afresh(jax_params, tmp_path):
+    """The JAX CLI runs train_catmodel once an epoch: a fresh
+    optax.adam(lr).init state and the dropout key seed + epoch. The port's
+    trainer over two epochs of one step: after each, Adam's state is that
+    init's (count 0, zero moments) and the generator is seeded with
+    seed + the next epoch's index, while the weights keep their steps."""
+    rng = np.random.default_rng(37)
+    tr = ttrain.CatModelTrainer(_carry(jax_params), lr=1e-3, batch_size=2,
+                                seed=11, device="cpu", dropout=False,
+                                out_dir=str(tmp_path))
+    end, after = tr.end_epoch, []
+
+    def ended(*a):
+        end(*a)
+        opt = tr.state.opt_state
+        after.append((opt["count"], opt["steps_since_sync"],
+                      [t.clone() for k in ("mu", "nu") for t in opt[k]],
+                      tr.generator.get_state(),
+                      [p.detach().clone() for p in _trainable_leaves(
+                          tr.state.model)]))
+    tr.end_epoch = ended
+
+    def feed():
+        for _ in range(2):
+            g0, g1 = _images(rng, 2)
+            yield {"g0": g0, "g1": g1, "y": rng.integers(0, 10, 2)}
+            yield EPOCH_END
+    tr.fit(feed(), None, None, None, None)
+    assert tr.state.step == 2 and [h["steps"] for h in tr.history] == [1, 1]
+    init = optax.adam(1e-3).init(jax_params)[0]
+    want = [x for k in ("mu", "nu")
+            for x in flatten_tree(jax.tree.map(np.asarray, getattr(init, k)))
+            if x[0][-1] not in ("mean", "var")]
+    for epoch, (count, since, moments, gen, _) in enumerate(after, 1):
+        assert (count, since) == (int(init.count), 0), epoch
+        assert len(moments) == len(want)
+        for got, (_, w) in zip(moments, want):
+            assert got.shape == w.shape and np.array_equal(got.numpy(), w)
+        assert torch.equal(
+            gen, torch.Generator().manual_seed(11 + epoch).get_state())
+    # the second epoch stepped on from the first's weights
+    start = [p.detach() for p in _trainable_leaves(tcat.CatModel(
+        _carry(jax_params)))]
+    assert any(not torch.equal(a, b) for a, b in zip(after[0][4], start))
+    assert any(not torch.equal(a, b)
+               for a, b in zip(after[1][4], after[0][4]))
+
+
 def test_adam_is_optax_adam_on_the_same_gradients():
     """Order of operations: the same gradients through both optimizers."""
     rng = np.random.default_rng(9)
@@ -231,7 +300,7 @@ def test_adam_is_optax_adam_on_the_same_gradients():
     tx = optax.adam(3e-3)
     jp = [jnp.asarray(a) for a in params]
     state = tx.init(jp)
-    mine = ttrain.adam(3e-3)
+    mine = Optimizer(ttrain.adam_config(3e-3))
     tp = [torch.tensor(a) for a in params]
     tstate = mine.init(tp)
     for step in range(5):
