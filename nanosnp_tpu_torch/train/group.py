@@ -32,6 +32,13 @@ batches stacked [G, ...] and the optimizer's scalar table [G, S]
 buffers by non-blocking copies. A capture raises if it fails; nothing
 falls back to eager steps.
 
+A group's metrics come back as a `GroupMetrics` handle at once: on the
+card the runner enqueues their copy into pinned host memory behind the
+group's steps on the same stream, and the first read of the handle waits
+for it. A caller that reads the handle of group k only after launching
+group k+1 keeps the card busy while the host prepares group k+2
+(`Trainer.run_group`).
+
 A capture records and runs nothing, so the kernel wrappers' launch
 counts (ops.bilstm.LAUNCHES, incremented in Python where a wrapper
 launches) move while capturing and never on replay: the runner takes
@@ -40,7 +47,8 @@ back what a capture added and adds it at every replay of that graph.
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, List, Optional
+from collections.abc import Mapping
+from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -82,6 +90,44 @@ class _Slot:
         self.launches: Dict[str, int] = {}
 
 
+class GroupMetrics(Mapping):
+    """The metrics of one group, each stacked [n, ...]: numpy arrays on
+    the host, read through a mapping that `GroupRunner.run` returns as
+    soon as the group is enqueued. On the card they are copied without
+    blocking into pinned host memory of the handle's own behind the
+    group's steps on the runner's stream (`done` records the copy's
+    end), so no later group overwrites them however late they are read;
+    on the CPU they are final when returned. The first read of any key
+    waits for the copy (span `nsp.group.fetch`) and counts the group
+    once: `nsp.group.deferred` where the runner had launched a later
+    group by then, else `nsp.group.drained`."""
+
+    def __init__(self, runner: "GroupRunner", out: Dict[str, torch.Tensor],
+                 done: Optional[torch.cuda.Event] = None):
+        self._runner, self._out, self._done = runner, out, done
+        self._index = runner.launched
+        self._arrays: Optional[Dict[str, np.ndarray]] = None
+
+    def _host(self) -> Dict[str, np.ndarray]:
+        if self._arrays is None:
+            with span("nsp.group.fetch"):
+                if self._done is not None:
+                    self._done.synchronize()
+                self._arrays = {k: v.numpy() for k, v in self._out.items()}
+            count("nsp.group.deferred" if self._runner.launched > self._index
+                  else "nsp.group.drained", 1)
+        return self._arrays
+
+    def __getitem__(self, key: str) -> np.ndarray:
+        return self._host()[key]
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._host())
+
+    def __len__(self) -> int:
+        return len(self._host())
+
+
 class GroupRunner:
     """Runs groups of at most `group` same-shape batches through
     `step_fn`, G sequential updates of `state.opt_state` under `tx`, on
@@ -91,13 +137,16 @@ class GroupRunner:
     `steps` counts the steps each route ran: "graph" (replays), "eager"
     (full groups run eagerly), "partial" (partial groups); `graphs` holds
     one record a capture: the batch shape, its seconds, the bytes the
-    graph's memory pool took, the launches of one replay.
+    graph's memory pool took, the launches of one replay; `launched` the
+    groups run.
 
     While tracing is on (utils/profiling.py), a group is span
-    `nsp.group.run`, in turn `nsp.group.stage` (staging), `.launch` (the
-    copies, the replay or eager steps, a capture) and `.fetch` (the host
-    waits for the metrics), and counter `nsp.h2d_bytes` adds the bytes
-    staged."""
+    `nsp.group.run`, in turn `nsp.group.stage` (staging) and `.launch`
+    (the copies in, the replay or eager steps, a capture, the copy of
+    the metrics out), and counter `nsp.h2d_bytes` adds the bytes staged;
+    span `nsp.group.fetch` and counters `nsp.group.deferred` and
+    `.drained` follow where the caller reads the metrics
+    (`GroupMetrics`)."""
 
     def __init__(self, step_fn: StepFn, tx: Optimizer, state,
                  generator: Optional[torch.Generator], device: torch.device,
@@ -113,17 +162,20 @@ class GroupRunner:
         self.slots: Dict[tuple, _Slot] = {}
         self.steps = {"graph": 0, "eager": 0, "partial": 0}
         self.graphs: List[dict] = []
+        self.launched = 0
 
     def run(self, batches: List[Dict[str, np.ndarray]],
-            freeze_on: float = 0.0) -> Dict[str, np.ndarray]:
+            freeze_on: float = 0.0) -> GroupMetrics:
         """One group: the batches (host arrays of one shape) in order, the
         frozen leaves' updates scaled by 1 - freeze_on. -> the metrics of
-        each step, stacked [n, ...] on the host."""
+        each step, stacked [n, ...] on the host, as a handle that returns
+        before the card has run the group (`GroupMetrics`)."""
         with span("nsp.group.run"):
             n = len(batches)
             if not 1 <= n <= self.group:
                 raise ValueError(f"a group holds 1 to {self.group} batches, "
                                  f"got {n}")
+            self.launched += 1
             key = tuple((k, v.shape, v.dtype.str)
                         for k, v in sorted(batches[0].items()))
             slot = self.slots.get(key)
@@ -134,9 +186,7 @@ class GroupRunner:
                 self._stage(slot, batches, freeze_on)
             if self.dev.type == "cpu":
                 with span("nsp.group.launch"):
-                    out = self._steps(slot, n)
-                with span("nsp.group.fetch"):
-                    out = self._host(out)
+                    out = GroupMetrics(self, self._steps(slot, n))
                 self.steps["eager" if n == self.group else "partial"] += n
             else:
                 out = self._on_card(slot, n)
@@ -161,33 +211,38 @@ class GroupRunner:
                     view[i] = b[k]
         count("nsp.h2d_bytes", sum(t[:n].nbytes for t in slot.host.values()))
 
-    def _on_card(self, slot: _Slot, n: int) -> Dict[str, np.ndarray]:
+    def _on_card(self, slot: _Slot, n: int) -> GroupMetrics:
+        """The copies in, the group's steps and the copy of its metrics
+        out, enqueued in that order on the runner's stream: the copy out
+        of a graph's static outputs comes before any later replay."""
         caller = torch.cuda.current_stream(self.dev)
         stream = self.stream or caller
         stream.wait_stream(caller)
-        with torch.cuda.stream(stream):
-            with span("nsp.group.launch"):
-                for k, t in slot.dev.items():
-                    t[:n].copy_(slot.host[k][:n], non_blocking=True)
-                slot.copied = torch.cuda.Event()
-                slot.copied.record(stream)
-                if self.use_graphs and n == self.group and slot.warm:
-                    if slot.graph is None:
-                        self._capture(slot)
-                    slot.graph.replay()
-                    for k, v in slot.launches.items():
-                        LAUNCHES[k] += v
-                    out = slot.outputs
-                    self.steps["graph"] += n
-                else:
-                    out = self._steps(slot, n)
-                    slot.warm |= n == self.group
-                    self.steps["eager" if n == self.group
-                               else "partial"] += n
-            with span("nsp.group.fetch"):
-                host = self._host(out)
+        with torch.cuda.stream(stream), span("nsp.group.launch"):
+            for k, t in slot.dev.items():
+                t[:n].copy_(slot.host[k][:n], non_blocking=True)
+            slot.copied = torch.cuda.Event()
+            slot.copied.record(stream)
+            if self.use_graphs and n == self.group and slot.warm:
+                if slot.graph is None:
+                    self._capture(slot)
+                slot.graph.replay()
+                for k, v in slot.launches.items():
+                    LAUNCHES[k] += v
+                out = slot.outputs
+                self.steps["graph"] += n
+            else:
+                out = self._steps(slot, n)
+                slot.warm |= n == self.group
+                self.steps["eager" if n == self.group else "partial"] += n
+            host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                    for k, v in out.items()}
+            for k, v in out.items():
+                host[k].copy_(v, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(stream)
         caller.wait_stream(stream)
-        return host
+        return GroupMetrics(self, host, done)
 
     def _steps(self, slot: _Slot, n: int) -> Dict[str, torch.Tensor]:
         """The group's n steps in order -> their metrics stacked."""
@@ -221,7 +276,3 @@ class GroupRunner:
             steps=self.group, capture_seconds=seconds,
             pool_bytes=torch.cuda.memory_reserved(self.dev) - reserved,
             launches_a_replay=dict(slot.launches)))
-
-    @staticmethod
-    def _host(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-        return {k: v.cpu().numpy() for k, v in out.items()}

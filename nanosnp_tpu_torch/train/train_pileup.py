@@ -308,6 +308,7 @@ class Trainer:
         self._write: Optional[Future] = None
         self.best_metric = float("-inf")
         self.freeze = 0.0
+        self._pending = None        # (metrics, batches, step): run_group
         # the JAX trainers group steps only when epochs are marked in the
         # data (steps_per_epoch None)
         self.groups = GroupRunner(
@@ -341,8 +342,10 @@ class Trainer:
 
     def run_group(self, batches) -> None:
         """The buffered host batches as one group of steps (this rank's
-        rows of each in a data-parallel run), then the meter and the
-        progress line from the group's metrics."""
+        rows of each in a data-parallel run), launched; then the meter
+        and the progress line of the group launched before it, whose
+        metrics the card gives while it runs this one. The group stays
+        pending until the next group or `drain`."""
         with span("nsp.train.convert"):
             if self.world > 1:
                 batches = [_rows(b, shard_rows(len(self.labels(b)[0]),
@@ -351,6 +354,20 @@ class Trainer:
             host = [self.host_batch(b) for b in batches]
         m = self.groups.run(host, self.freeze)
         self.state.step += len(batches)
+        last, self._pending = self._pending, (m, batches, self.state.step)
+        if last is not None:
+            self._meter(*last)
+
+    def drain(self) -> None:
+        """The meter and the progress line of the pending group, if any:
+        before an epoch ends and when training stops."""
+        last, self._pending = self._pending, None
+        if last is not None:
+            self._meter(*last)
+
+    def _meter(self, m, batches, step: int) -> None:
+        """A group's metrics (its `GroupMetrics`, read here) into the
+        epoch meter, and the progress line at the step that ended it."""
         with span("nsp.train.meter"):
             zy_pred = m.get("zy_pred")
             for i, b in enumerate(batches):
@@ -358,13 +375,12 @@ class Trainer:
                 self.meter.update(m["loss"][i], m["gt_pred"][i], gt_true,
                                   None if zy_pred is None else zy_pred[i],
                                   zy_true)
-            if self.state.step % self.log_every < self.groups.group \
-                    and self.rank == 0:
+            if step % self.log_every < self.groups.group and self.rank == 0:
                 dt = time.monotonic() - self.t0
-                print(f"[{self.name}] step {self.state.step} "
+                print(f"[{self.name}] step {step} "
                       f"loss {float(m['loss'][-1]):.4f} "
                       f"gt_acc {float(m['gt_acc'][-1]):.4f} "
-                      f"({self.state.step / dt:.1f} steps/s)")
+                      f"({step / dt:.1f} steps/s)")
 
     @session("nsp.train.fit")
     def fit(self, data_iter: Iterator, steps_per_epoch: Optional[int],
@@ -375,12 +391,15 @@ class Trainer:
         sentinel every buffer runs, then the epoch ends (with
         steps_per_epoch, after every that many steps); `max_steps` is
         checked after each batch, so the run ends with the group that
-        reaches it.
+        reaches it. A group is metered once the next is launched
+        (`run_group`); the pending one is metered (`drain`) before an
+        epoch ends and when the loop does.
 
         A tracing session (utils/profiling.py), `nsp.train.fit`: each
         batch's `nsp.train.feed` (the iterator's next and the buffering),
         and each group's `nsp.train.convert` (`host_batch`),
-        `nsp.group.run` and `nsp.train.meter`."""
+        `nsp.group.run` and `nsp.train.meter`, the last holding
+        `nsp.group.fetch`, the wait for the group's metrics."""
         from .data import EPOCH_END
 
         bufs: Dict[object, list] = {}
@@ -390,6 +409,7 @@ class Trainer:
         def flush_all():
             for key in list(bufs):
                 self.run_group(bufs.pop(key))
+            self.drain()
 
         while True:
             with span("nsp.train.feed"):
@@ -407,6 +427,7 @@ class Trainer:
                 self.run_group(bufs.pop(key))
             if steps_per_epoch and self.state.step \
                     and self.state.step % steps_per_epoch == 0:
+                self.drain()
                 self.end_epoch(val_iter_factory, eval_fn)
             if max_steps and self.state.step >= max_steps:
                 break
@@ -478,6 +499,7 @@ class Trainer:
         barrier("nsp_train_epoch")
 
     def finish(self) -> TrainState:
+        self.drain()
         self._save("last.ckpt", include_optimizer=True,
                    generator=self.generator)
         self.wait_for_writes()

@@ -145,9 +145,13 @@ def test_fit_spans_nest_and_land_in_the_trace(tmp_path, fit):
                 "nsp.train.meter"):
         assert all(s["parent"] == root["id"] for s in names[top]), top
     assert len(names["nsp.group.run"]) == n_groups
-    for child in ("nsp.group.stage", "nsp.group.launch", "nsp.group.fetch"):
+    # the host waits for a group's metrics where it meters them, a group
+    # late (train/group.py, GroupMetrics)
+    for child, parent in (("nsp.group.stage", "nsp.group.run"),
+                          ("nsp.group.launch", "nsp.group.run"),
+                          ("nsp.group.fetch", "nsp.train.meter")):
         assert len(names[child]) == n_groups
-        assert all(ids[s["parent"]]["name"] == "nsp.group.run"
+        assert all(ids[s["parent"]]["name"] == parent
                    for s in names[child]), child
     # self time: the duration less the children's, exactly
     kids = {}
