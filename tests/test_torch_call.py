@@ -129,17 +129,7 @@ class _RefForward(torch.nn.Module):
 
 def fit_reference_pileup(mcfg, data_dir, steps=150, batch=128):
     """A reference-layout checkpoint dict of a pileup model fitted to the
-    labeled arrays in `data_dir`: seeded init, seeded batches, Adam. One
-    thread: at this size more threads only get in each other's way."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        return _fit_reference_pileup(mcfg, data_dir, steps, batch)
-    finally:
-        torch.set_num_threads(threads)
-
-
-def _fit_reference_pileup(mcfg, data_dir, steps, batch):
+    labeled arrays in `data_dir`: seeded init, seeded batches, Adam."""
     torch.manual_seed(11)
     enc, fwd = _RefEncoder(mcfg), _RefForward(mcfg)
     arrays = [D.load_train_arrays(str(p))

@@ -71,17 +71,6 @@ def _batches(seed, steps=STEPS):
     return out
 
 
-@pytest.fixture(autouse=True, scope="module")
-def two_threads():
-    """Two threads a process: the test workers share the machine's
-    cores, and the sums' order, which the tolerances above allow for,
-    stays the same from machine to machine."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def params():
     return init_catmodel_params(torch.Generator().manual_seed(41))

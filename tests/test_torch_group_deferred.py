@@ -167,6 +167,7 @@ def _traced(fit, out, monkeypatch, capsys, at_once):
     with profiler.profile(use_kineto=True):
         state = fit(out)
     counters = P.snapshot()["counters"]
+    P._clear()      # the recorder is the process's: leave it empty
     monkeypatch.setattr(GroupRunner, "run", run)
     lines = [RATE.sub("", ln) for ln in capsys.readouterr().out.splitlines()
              if "] step " in ln]
@@ -301,6 +302,7 @@ def test_a_handle_resolves_once_and_counts_where_it_is_read(tmp_path):
             np.testing.assert_array_equal(c["loss"], [12.0])
             a["loss"], b["loss"]
     counters = P.snapshot()["counters"]
+    P._clear()      # the recorder is the process's: leave it empty
     assert counters["nsp.group.drained"] == 2
     assert counters["nsp.group.deferred"] == 1
     assert runner.launched == 3
