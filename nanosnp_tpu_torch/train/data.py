@@ -373,7 +373,10 @@ def haplotype_train_iterator(
     keep confident sites with -1 <= zy < 10 and gt < 10; mix refcalls and
     variants at pn_value (variants / refcalls); refcall zy of -1 trains as
     class 0. Featurization happens on device inside the train step, so
-    batches carry the raw read matrices.
+    batches carry the raw read matrices, in the shards' own dtypes (int8
+    sequences, baseq and hap, int16 mapq; depth padding PAD_VALUE): no
+    value is widened or narrowed on the host. The reference codes are f32,
+    gt and zy int32, and a tiled remainder batch carries "_n".
     """
     from ..io import bins as _bins
     from ..features.haplotype import ref_position_codes, ref_window_codes
@@ -400,15 +403,15 @@ def haplotype_train_iterator(
         rng.shuffle(sel)
         idx = sel
         return {
-            "p_seq": shard.pileup["sequences"][idx].astype(np.float32),
-            "p_baseq": shard.pileup["baseq"][idx].astype(np.float32),
-            "p_mapq": shard.pileup["mapq"][idx].astype(np.float32),
-            "p_hap": shard.pileup["hap"][idx].astype(np.float32),
+            "p_seq": shard.pileup["sequences"][idx],
+            "p_baseq": shard.pileup["baseq"][idx],
+            "p_mapq": shard.pileup["mapq"][idx],
+            "p_hap": shard.pileup["hap"][idx],
             "p_ref": _ref_codes_for(shard, idx, _C.FLANKING_BASES, "pileup"),
-            "h_seq": shard.haplotype["sequences"][idx].astype(np.float32),
-            "h_baseq": shard.haplotype["baseq"][idx].astype(np.float32),
-            "h_mapq": shard.haplotype["mapq"][idx].astype(np.float32),
-            "h_hap": shard.haplotype["hap"][idx].astype(np.float32),
+            "h_seq": shard.haplotype["sequences"][idx],
+            "h_baseq": shard.haplotype["baseq"][idx],
+            "h_mapq": shard.haplotype["mapq"][idx],
+            "h_hap": shard.haplotype["hap"][idx],
             "h_ref": _ref_codes_for(shard, idx, None, "haplotype"),
             "gt": gt[idx].astype(np.int32),
             "zy": np.where(zy[idx] >= 0, zy[idx], 0).astype(np.int32),
